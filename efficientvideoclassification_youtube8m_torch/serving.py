@@ -1,0 +1,159 @@
+"""Embeddable serving API (port of the JAX package's serving.py).
+
+Build a Predictor once from parameters, then call `predict` on uint8
+frame batches:
+
+    from efficientvideoclassification_youtube8m_torch.serving import Predictor
+    p = Predictor(cfg, params, device="cuda")   # JAX-layout tree or module
+    probs = p.predict(features_u8, num_frames)   # [B, 4716]
+    vals, idx = p.predict_topk(features_u8, num_frames, k=20)
+
+Serves the STUDENT (the paper's deliverable: ~10x fewer frames) by
+default; `tower="teacher"` serves the teacher. In bf16 on a CUDA device
+the LSTM recurrences run in the hand-written kernel
+(ops/kernels/lstm_scan.py). Student requests are strided on the host, so
+only 1/every_n of the uint8 bytes cross to the device.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from efficientvideoclassification_youtube8m_torch.models import get_model
+from efficientvideoclassification_youtube8m_torch.ops.preprocess import (
+    host_subsample,
+    student_num_frames,
+)
+from efficientvideoclassification_youtube8m_torch.train.step import (
+    forward_student,
+    forward_teacher,
+    preprocess_batch,
+)
+from efficientvideoclassification_youtube8m_torch.weights import load_jax_params
+from efficientvideoclassification_youtube8m_tpu.utils.config import TrainConfig
+
+
+def init_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
+               device=None) -> nn.Module:
+    """`cfg.model` at the config's sizes, with weights drawn from
+    `generator` (the counterpart of the JAX `model.init`)."""
+    return get_model(cfg.model)(
+        cfg.total_feature_size, cfg.num_classes,
+        lstm_cells=cfg.lstm_cells, lstm_layers=cfg.lstm_layers,
+        classifier=cfg.video_level_classifier_model,
+        classifier_kwargs={"num_mixtures": cfg.moe_num_mixtures},
+        generator=generator, device=device,
+    )
+
+
+class Predictor:
+    def __init__(self, cfg: TrainConfig, params_or_module, tower: str = "student",
+                 serve_batch: int = 256, device="cuda", fetch_depth: int = 4,
+                 mesh=None, sequence_parallel: bool = False,
+                 quantize: str = "none"):
+        if tower not in ("student", "teacher"):
+            raise ValueError(f"tower must be 'student' or 'teacher', got {tower!r}")
+        if quantize not in ("none", "int8"):
+            raise ValueError(f"quantize must be 'none' or 'int8', got {quantize!r}")
+        if quantize == "int8":
+            raise NotImplementedError(
+                "int8 serving comes with the int8 kernel port "
+                "(ROADMAP Queue 1 item 10, Queue 2 item 4)")
+        if sequence_parallel:
+            raise NotImplementedError(
+                "sequence-parallel serving comes with the parallel port "
+                "(ROADMAP Queue 1 item 13)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "data-parallel serving comes with the parallel port "
+                "(ROADMAP Queue 1 item 13)")
+        self.cfg = cfg
+        self.tower = tower
+        self.serve_batch = serve_batch
+        # in-flight dispatch depth of predict()'s chunk ring (lag-N)
+        self.fetch_depth = fetch_depth
+        self.device = torch.device(device)
+        # student requests are strided on the HOST (predict below), so
+        # only 1/every_n of the uint8 bytes cross the host->device edge
+        self._host_stride = cfg.every_n if tower == "student" else 1
+        if isinstance(params_or_module, nn.Module):
+            self.model = params_or_module.to(self.device)
+        else:
+            self.model = load_jax_params(init_model(cfg, device=self.device),
+                                         params_or_module)
+        self.model.eval()
+
+    @classmethod
+    def from_checkpoint(cls, train_dir: str, cfg: Optional[TrainConfig] = None,
+                        tower: str = "student", **kwargs) -> "Predictor":
+        raise NotImplementedError(
+            "loading the JAX package's checkpoints comes with the checkpoint "
+            "bridge (ROADMAP Queue 1 item 8); build the Predictor from a "
+            "parameter tree or module instead")
+
+    @torch.inference_mode()
+    def _fwd(self, features_u8: np.ndarray, num_frames: np.ndarray
+             ) -> torch.Tensor:
+        cfg = self.cfg
+        feats = torch.from_numpy(features_u8).to(self.device, non_blocking=True)
+        nf = torch.from_numpy(num_frames).to(self.device, non_blocking=True)
+        if self.tower == "student":
+            # features arrive host-strided to every_n already
+            nfs = student_num_frames(nf, cfg.every_n, cfg.max_num_frames)
+            xs = preprocess_batch(cfg, feats, nfs)
+            out = forward_student(cfg, self.model, xs, nfs, inference=True)
+        else:
+            xs = preprocess_batch(cfg, feats, nf)
+            out = forward_teacher(cfg, self.model, xs, nf, inference=True)
+        return out["predictions"]
+
+    def predict(self, features_u8: np.ndarray, num_frames: np.ndarray
+                ) -> np.ndarray:
+        """features_u8 [B, max_frames, D] uint8, num_frames [B] ->
+        probabilities [B, vocab] float32. Requests are cut into chunks of
+        serve_batch rows, the last padded with num_frames=0.
+
+        Chunks go through a lag-N ring: up to `fetch_depth` chunks stay
+        launched on the device and only the oldest result is copied to
+        the host, so host work on the next chunk overlaps device compute.
+        FIFO drain keeps the output order."""
+        B = features_u8.shape[0]
+        if self._host_stride > 1:
+            features_u8 = host_subsample(features_u8, self._host_stride)
+        num_frames = np.asarray(num_frames)
+        out = []
+        ring: deque = deque()  # (device preds, valid row count)
+        depth = max(1, self.fetch_depth)
+        for start in range(0, B, self.serve_batch):
+            chunk = np.ascontiguousarray(features_u8[start : start + self.serve_batch])
+            nf = np.ascontiguousarray(num_frames[start : start + self.serve_batch])
+            n = chunk.shape[0]
+            if n < self.serve_batch:
+                pad = self.serve_batch - n
+                chunk = np.concatenate(
+                    [chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
+                nf = np.concatenate([nf, np.zeros(pad, nf.dtype)])
+            ring.append((self._fwd(chunk, nf), n))
+            # pop only when MORE than `depth` are in flight
+            if len(ring) > depth:
+                preds, rows = ring.popleft()
+                out.append(preds[:rows].cpu().numpy())
+        while ring:
+            preds, rows = ring.popleft()
+            out.append(preds[:rows].cpu().numpy())
+        return np.concatenate(out, axis=0) if out else np.zeros(
+            (0, self.cfg.num_classes), np.float32)
+
+    def predict_topk(self, features_u8, num_frames, k: int = 20
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        probs = self.predict(features_u8, num_frames)
+        idx = np.argpartition(probs, -k, axis=1)[:, -k:]
+        rows = np.arange(probs.shape[0])[:, None]
+        vals = probs[rows, idx]
+        order = np.argsort(-vals, axis=1)
+        return vals[rows, order], idx[rows, order]

@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernel from this checkout's sources, holds
-it against its plain PyTorch version at the shapes the serving path gives
-it, serves the flagship student through `Predictor` and checks that its
-LSTM recurrences went through the kernel. Phases:
+Builds the hand-written CUDA kernels from this checkout's sources (one
+nvcc per source, started together), holds each against its plain
+PyTorch version at the shapes its path gives it, serves the flagship
+student through `Predictor`, trains the flagship by distillation through
+`build_distill_train_step`, and checks that the recurrences of both
+paths went through the kernels. Phases:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA
-     versions, the kernel's build time and ptxas report;
+     versions, the kernels' build time and ptxas report;
   2. `lstm_chunk_scan` against `lstm_chunk_scan_reference` in bf16 at the
      student and teacher layer shapes and a ragged one, with times;
   3. the student tower at the flagship config (TrainConfig defaults in
@@ -17,7 +19,17 @@ LSTM recurrences went through the kernel. Phases:
      chunks, random weights from a seed) serving requests of 256, 100
      and 513 videos; the launch count, the range of the predictions, the
      agreement with the plain-scan Predictor, and videos/s at batch 256;
-  4. one teacher request (the T=15 and T=20 recurrences).
+  4. one teacher request (the T=15 and T=20 recurrences);
+  5. `lstm_train_fwd` and `lstm_train_bwd` against their plain versions
+     in bf16 at the four flagship train layer shapes (batch 256) and a
+     ragged one, and `LstmLayerTrain` against plain autograd of
+     `lstm_train_fwd_reference`, with times;
+  6. distillation training at the flagship config: the loss and the
+     gradients of `distill_loss_and_grads` on the kernel path against
+     the plain-scan path from the same weights, three steps of
+     `build_distill_train_step` (launch counts, finite losses, the
+     global step, train videos/s on both paths), and one
+     `build_finetune_step` step.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is {"kernels": [...]}; the last is {"ok": true, "device": {...}}. With no
@@ -35,17 +47,33 @@ import time
 import numpy as np
 import torch
 
+from efficientvideoclassification_youtube8m_torch.metrics.eval_util import (
+    train_step_metrics,
+)
 from efficientvideoclassification_youtube8m_torch.ops.kernels import _build
 from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_scan
+from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_train
 from efficientvideoclassification_youtube8m_torch.serving import (
     Predictor,
     TrainConfig,
     init_model,
 )
+from efficientvideoclassification_youtube8m_torch.train.optimizer import (
+    make_optimizer,
+)
+from efficientvideoclassification_youtube8m_torch.train.state import (
+    init_distill_state,
+    student_state_from_distill,
+)
+from efficientvideoclassification_youtube8m_torch.train.step import (
+    build_distill_train_step,
+    build_finetune_step,
+    distill_loss_and_grads,
+)
 
-KERNEL = "lstm_chunk_scan"
-KERNEL_SOURCE = "efficientvideoclassification_youtube8m_torch/ops/csrc/lstm_chunk_scan.cu"
-REPLACES = "efficientvideoclassification_youtube8m_tpu/ops/pallas/lstm_scan.py:72"
+CSRC = "efficientvideoclassification_youtube8m_torch/ops/csrc/"
+PALLAS = "efficientvideoclassification_youtube8m_tpu/ops/pallas/lstm_scan.py:"
+LIBRARIES = ("lstm_chunk_scan", "lstm_train")
 
 # Kernel against plain version, both on bf16 operands with f32 sums: the
 # sums run in another order, so a bf16 output can round an ulp or two
@@ -58,9 +86,26 @@ TOL_FINALS = 2e-3
 # the same differences carried through both levels and the MoE head
 # (5.4e-6 measured).
 TOL_PREDICTIONS = 1e-3
+# Train kernels against their plain versions, on the same bf16 operands
+# (measured on an H100 in brackets): the forward's f32 residuals differ
+# by the gates' summation order, like the finals above (2.2e-4); dgates
+# are bf16, so an element can round one bf16 ulp apart after the f32 dh
+# chain ran in another order (2.9e-3 of the max); gradients through
+# LstmLayerTrain are compared as the largest difference over the
+# tensor's largest magnitude, at tests/test_pallas_lstm.py's bar (3.1e-3:
+# the plain autograd rounds dh to bf16 every step, the kernel keeps it
+# at about f32 by the hi/lo split).
+TOL_TRAIN_F32 = 2e-3
+TOL_DGATES_REL = 1e-2
+TOL_GRAD_REL = 3e-2
+# Distill losses, kernel path against plain path: the forwards differ by
+# summation order only (8e-4 relative on L_PRED, a batch sum of nearly
+# cancelling terms; 6e-6 or less elsewhere).
+TOL_LOSS_REL = 1e-3
+TOL_LOSS_ABS = 1e-5
 
-# (name, T, B, H, D_in): the layers the flagship serves at serve_batch
-# 256. L1 folds 5 (student) or 20 (teacher) chunks into the batch axis;
+# (name, T, B, H, D_in): the layers of the flagship at batch 256, in
+# serving (serve_batch) and in training (batch_size). L1 folds 5 (student) or 20 (teacher) chunks into the batch axis;
 # D_in is the input width of the level's first layer.
 LAYER_SHAPES = [
     ("student_L1", 6, 1280, 1024, 1152),
@@ -68,6 +113,7 @@ LAYER_SHAPES = [
     ("teacher_L1", 15, 5120, 1024, 1152),
     ("teacher_L2", 20, 256, 1024, 4096),
     ("ragged", 7, 13, 48, 40),
+    ("single_step", 1, 9, 16, 24),  # the train backward's prologue alone
 ]
 SERVE_BATCH = 256
 
@@ -100,11 +146,14 @@ def phase_card() -> str:
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
+    _build.build(LIBRARIES)
     lstm_scan.load_kernel()
-    log(f"[1] kernel build+load: {time.perf_counter() - t0:.3f} s")
-    for line in _build.build_log(KERNEL).splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[1] ptxas: {line.strip()}")
+    lstm_train.load_kernel()
+    log(f"[1] kernel builds (parallel) + load: {time.perf_counter() - t0:.3f} s")
+    for name in LIBRARIES:
+        for line in _build.build_log(name).splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"[1] ptxas {name}: {line.strip()}")
     return smi
 
 
@@ -143,7 +192,7 @@ def phase_kernel():
             "c_fin": (c - r_c).abs().max().item(),
             "h_fin": (h - r_h).abs().max().item(),
         }
-        iters = 20 if name != "ragged" else 5
+        iters = 20 if B >= 256 else 5
         ms = cuda_ms(lambda: lstm_scan.lstm_chunk_scan(*args), iters)
         plain_ms = cuda_ms(lambda: lstm_scan.lstm_chunk_scan_reference(*args), iters)
         times[name] = (ms, plain_ms)
@@ -241,6 +290,228 @@ def phase_serving(smi):
     return launches
 
 
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|got - want| over max|want| (over 1 where want is all zero)."""
+    scale = want.abs().max().item() or 1.0
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+def train_layer_case(T, B, H, D, gen):
+    """One layer as the train path gives it: xs [B, T, D] at unit-norm
+    scale, the full glorot kernel [D+H, 4H] f32, a bias, sequence lengths
+    holding 0, T and mixed values, and cotangents of (outs as bf16
+    values, c_fin, h_fin)."""
+    dev = "cuda"
+    limit = math.sqrt(6.0 / (D + H + 4 * H))
+    xs = torch.randn(B, T, D, generator=gen, device=dev) / math.sqrt(D)
+    kernel = (torch.rand(D + H, 4 * H, generator=gen, device=dev) * 2 - 1) * limit
+    bias = torch.randn(4 * H, generator=gen, device=dev) * 0.1
+    seq = torch.randint(0, T + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    seq[0], seq[-1] = 0, T
+    cot = (torch.randn(T, B, H, generator=gen, device=dev).bfloat16().float(),
+           torch.randn(B, H, generator=gen, device=dev),
+           torch.randn(B, H, generator=gen, device=dev))
+    return xs, kernel, bias, seq, cot
+
+
+def layer_grads(xs, kernel, bias, seq, cot, use_kernel):
+    """d loss / d (kernel, bias, xs) of loss = <outs, d_outs> + <c_fin,
+    d_c> + <h_fin, d_h>, through LstmLayerTrain or through plain autograd
+    of lstm_train_fwd_reference."""
+    k, b, x = (t.clone().requires_grad_(True) for t in (kernel, bias, xs))
+    D = xs.shape[-1]
+    if use_kernel:
+        outs, c, h = lstm_train.LstmLayerTrain.apply(k, b, x, seq, 1.0)
+        outs = outs.transpose(0, 1)
+    else:
+        xp = torch.matmul(x.transpose(0, 1).bfloat16(), k[:D].bfloat16())
+        outs, _, _, c, h = lstm_train.lstm_train_fwd_reference(xp, k[D:], b, seq)
+    d_outs, d_c, d_h = cot
+    loss = (outs.float() * d_outs).sum() + (c * d_c).sum() + (h * d_h).sum()
+    return torch.autograd.grad(loss, (k, b, x))
+
+
+def phase_train_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    times = {}
+    for name, T, B, H, D in LAYER_SHAPES:
+        xs, kernel, bias, seq, cot = train_layer_case(T, B, H, D, gen)
+        xp = torch.matmul(xs.transpose(0, 1).bfloat16(), kernel[:D].bfloat16())
+        w_h = kernel[D:]
+        got = lstm_train.lstm_train_fwd(xp, w_h, bias, seq)
+        want = lstm_train.lstm_train_fwd_reference(xp, w_h, bias, seq)
+        torch.cuda.synchronize()
+        fwd_err = {key: (g.float() - w.float()).abs().max().item()
+                   for key, g, w in zip(("outs", "gates", "cs", "c_fin", "h_fin"),
+                                        got, want)}
+        past = torch.arange(T, device="cuda")[:, None] >= seq[None, :]
+        zeros_past_seq = bool((got[0][past] == 0).all())
+
+        gates, cs = got[1], got[2]
+        dg = lstm_train.lstm_train_bwd(w_h, gates, cs, *cot, seq)
+        dg_ref = lstm_train.lstm_train_bwd_reference(w_h, gates, cs, *cot, seq)
+        torch.cuda.synchronize()
+        dg_abs = (dg.float() - dg_ref.float()).abs().max().item()
+        dg_rel = rel_err(dg, dg_ref)
+
+        grads_k = layer_grads(xs, kernel, bias, seq, cot, use_kernel=True)
+        grads_p = layer_grads(xs, kernel, bias, seq, cot, use_kernel=False)
+        grad_err = {key: rel_err(g, w) for key, g, w in
+                    zip(("d_kernel", "d_bias", "d_xs"), grads_k, grads_p)}
+        del grads_k, grads_p
+
+        iters = 10 if B >= 256 else 5
+        args = (xp, w_h, bias, seq)
+        bwd_args = (w_h, gates, cs, *cot, seq)
+        ms = {
+            "fwd": cuda_ms(lambda: lstm_train.lstm_train_fwd(*args), iters),
+            "fwd_plain": cuda_ms(lambda: lstm_train.lstm_train_fwd_reference(*args), iters),
+            "bwd": cuda_ms(lambda: lstm_train.lstm_train_bwd(*bwd_args), iters),
+            "bwd_plain": cuda_ms(lambda: lstm_train.lstm_train_bwd_reference(*bwd_args), iters),
+        }
+        times[name] = ms
+        log(f"[5] {name} T={T} B={B} H={H}: fwd max|diff| "
+            + " ".join(f"{k} {v:.3g}" for k, v in fwd_err.items())
+            + f"; zeros past seq {zeros_past_seq}; bwd dgates max|diff| {dg_abs:.3g} "
+            f"({dg_rel:.3g} of max); LstmLayerTrain vs plain autograd, max|diff| "
+            "of max: " + " ".join(f"{k} {v:.3g}" for k, v in grad_err.items()))
+        log(f"[5] {name}: fwd kernel {ms['fwd']:.4f} ms, plain {ms['fwd_plain']:.4f} ms; "
+            f"bwd kernel {ms['bwd']:.4f} ms, plain {ms['bwd_plain']:.4f} ms")
+        checks = [*fwd_err.values(), dg_abs, dg_rel, *grad_err.values()]
+        if not all(map(math.isfinite, checks)):
+            raise AssertionError(f"{name}: non-finite difference")
+        if not zeros_past_seq:
+            raise AssertionError(f"{name}: outs past seq are not zero")
+        if fwd_err["outs"] > TOL_OUTS or max(
+                fwd_err[k] for k in ("gates", "cs", "c_fin", "h_fin")) > TOL_TRAIN_F32:
+            raise AssertionError(f"{name}: train fwd kernel and plain version disagree")
+        if dg_rel > TOL_DGATES_REL:
+            raise AssertionError(f"{name}: train bwd kernel and plain version disagree")
+        if max(grad_err.values()) > TOL_GRAD_REL:
+            raise AssertionError(f"{name}: LstmLayerTrain and plain autograd disagree")
+        worst["fwd"] = max(worst["fwd"], *fwd_err.values())
+        worst["bwd"] = max(worst["bwd"], dg_abs)
+        del xs, kernel, xp, got, want, gates, cs, dg, dg_ref
+    log(f"[5] tolerances: bf16 outs {TOL_OUTS}, f32 residuals and finals "
+        f"{TOL_TRAIN_F32}, dgates {TOL_DGATES_REL} of max, gradients "
+        f"{TOL_GRAD_REL} of max")
+    return worst, times
+
+
+def distill_batch(cfg, n, seed):
+    """n uint8 videos [n, 300, 1152] with num_frames in 1..300 and about
+    3 labels a row, on the card."""
+    rng = np.random.default_rng(seed)
+    feats = rng.integers(0, 256, (n, cfg.max_num_frames, cfg.total_feature_size),
+                         dtype=np.uint8)
+    labels = rng.random((n, cfg.num_classes)) < 3.0 / cfg.num_classes
+    nf = rng.integers(1, cfg.max_num_frames + 1, n).astype(np.int32)
+    return tuple(torch.from_numpy(a).cuda() for a in (feats, labels, nf))
+
+
+def train_counts():
+    return (lstm_train.lstm_train_fwd.launches, lstm_train.lstm_train_bwd.launches)
+
+
+def timed_step(step, state, batch):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, *batch)
+    torch.cuda.synchronize()
+    return state, metrics, time.perf_counter() - t0
+
+
+def phase_distill(smi):
+    cfg = TrainConfig(compute_dtype="bfloat16")
+    B = cfg.batch_size
+    opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
+    state = init_distill_state(cfg, opt, torch.Generator().manual_seed(0),
+                               device="cuda")
+    batch = distill_batch(cfg, B, seed=6)
+    per_tower = 2 * cfg.lstm_layers  # train kernel launches of each kind
+
+    k_ls, _, k_gt, k_gs = distill_loss_and_grads(cfg, state, *batch)
+    p_ls, _, p_gt, p_gs = distill_loss_and_grads(cfg, state, *batch,
+                                                 kernel_train_mode="off")
+    loss_bad = [k for k in k_ls if abs(k_ls[k].item() - p_ls[k].item())
+                > TOL_LOSS_REL * abs(p_ls[k].item()) + TOL_LOSS_ABS]
+    log("[6] distill losses, kernel path / plain path: " + "; ".join(
+        f"{k} {k_ls[k].item():.6g} / {p_ls[k].item():.6g}" for k in k_ls))
+    grad_err = {f"{tower}.{n}": rel_err(g[n], p[n])
+                for tower, g, p in (("teacher", k_gt, p_gt), ("student", k_gs, p_gs))
+                for n in g}
+    top = sorted(grad_err.items(), key=lambda kv: -kv[1])
+    log(f"[6] gradients, kernel path vs plain path, max|diff| of max over "
+        f"{len(grad_err)} tensors: worst " + ", ".join(
+            f"{n} {v:.3g}" for n, v in top[:4]) + f"; median "
+        f"{float(np.median(list(grad_err.values()))):.3g} (tolerances: losses "
+        f"{TOL_LOSS_REL} relative + {TOL_LOSS_ABS}, gradients {TOL_GRAD_REL})")
+    if loss_bad or not all(math.isfinite(v) for v in grad_err.values()):
+        raise AssertionError(f"kernel and plain distill losses disagree: {loss_bad}")
+    if top[0][1] > TOL_GRAD_REL:
+        raise AssertionError(f"kernel and plain distill gradients disagree: {top[:4]}")
+    del k_gt, k_gs, p_gt, p_gs
+
+    step = build_distill_train_step(cfg, opt)
+    lstm_scan.lstm_chunk_scan.launches = 0
+    lstm_train.lstm_train_fwd.launches = 0
+    lstm_train.lstm_train_bwd.launches = 0
+    seconds = []
+    for i in range(3):
+        before = train_counts()
+        state, metrics, sec = timed_step(step, state, batch)
+        seconds.append(sec)
+        delta = [a - b for a, b in zip(train_counts(), before)]
+        losses = {k: metrics[k].item() for k in k_ls}
+        log(f"[6] distill step {i + 1}: {sec * 1e3:.1f} ms, train launches "
+            f"fwd {delta[0]} bwd {delta[1]}, teacher_label_loss "
+            f"{losses['teacher_label_loss']:.6g}, total_student_loss "
+            f"{losses['total_student_loss']:.6g}, lr {metrics['learning_rate'].item():.6g}")
+        if delta != [2 * per_tower, 2 * per_tower]:
+            raise AssertionError(f"a distill step made {delta} train launches, "
+                                 f"not {2 * per_tower} of each")
+        if not all(map(math.isfinite, losses.values())):
+            raise AssertionError(f"non-finite distill losses {losses}")
+    launches = train_counts()
+    if lstm_scan.lstm_chunk_scan.launches or state.global_step != 6:
+        raise AssertionError("training used the forward-only kernel, or the "
+                             f"global step is {state.global_step}, not 6")
+    host = train_step_metrics(metrics["topk_val"].cpu().numpy(),
+                              metrics["topk_idx"].cpu().numpy(),
+                              batch[1].cpu().numpy(),
+                              metrics["perr_precision"].cpu().numpy())
+    log(f"[6] global_step {state.global_step}; teacher metrics of step 3: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in host.items()))
+    if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in host.values()):
+        raise AssertionError(f"teacher metrics out of [0, 1]: {host}")
+    rate = B / float(np.median(seconds[1:]))
+
+    plain_step = build_distill_train_step(cfg, opt, kernel_train_mode="off")
+    before = train_counts()
+    plain_seconds = [timed_step(plain_step, state, batch)[2] for _ in range(3)]
+    if train_counts() != before:
+        raise AssertionError("the plain path launched a train kernel")
+    plain_rate = B / float(np.median(plain_seconds[1:]))
+    log(f"[6] distill train, batch {B}, bf16: kernel path {rate:.1f} videos/s "
+        f"(step {np.median(seconds[1:]) * 1e3:.1f} ms), plain path "
+        f"{plain_rate:.1f} videos/s (step {np.median(plain_seconds[1:]) * 1e3:.1f} ms); "
+        f"median of steps 2-3; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({smi})")
+
+    sstate = student_state_from_distill(state, opt)
+    finetune = build_finetune_step(cfg, opt)
+    before = train_counts()
+    sstate, fmetrics, sec = timed_step(finetune, sstate, batch)
+    delta = [a - b for a, b in zip(train_counts(), before)]
+    ce = fmetrics["student_label_loss"].item()
+    log(f"[6] finetune step: {sec * 1e3:.1f} ms, train launches fwd {delta[0]} "
+        f"bwd {delta[1]}, student_label_loss {ce:.6g}, global_step {sstate.global_step}")
+    if delta != [per_tower, per_tower] or not math.isfinite(ce) or sstate.global_step != 1:
+        raise AssertionError("the finetune step did not run through the train kernels")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -249,15 +520,27 @@ def main() -> None:
     smi = phase_card()
     worst, times = phase_kernel()
     launches = phase_serving(smi)
+    train_worst, train_times = phase_train_kernels()
+    train_launches = phase_distill(smi)
     if any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules):
         raise AssertionError("the port imported jax")
     ms, plain_ms = times["student_L1"]
+    train_ms = train_times["student_L1"]
     log(f"[1] card: {smi}")
-    log(json.dumps({"kernels": [{
-        "name": KERNEL, "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": worst,
-        "ms": ms, "plain_ms": plain_ms,
-    }]}))
+    log(json.dumps({"kernels": [
+        {"name": "lstm_chunk_scan", "route": "cuda",
+         "source": CSRC + "lstm_chunk_scan.cu", "replaces": PALLAS + "72",
+         "launches": launches, "max_abs_err": worst, "ms": ms,
+         "plain_ms": plain_ms},
+        {"name": "lstm_train_fwd", "route": "cuda",
+         "source": CSRC + "lstm_train.cu", "replaces": PALLAS + "230",
+         "launches": train_launches[0], "max_abs_err": train_worst["fwd"],
+         "ms": train_ms["fwd"], "plain_ms": train_ms["fwd_plain"]},
+        {"name": "lstm_train_bwd", "route": "cuda",
+         "source": CSRC + "lstm_train.cu", "replaces": PALLAS + "333",
+         "launches": train_launches[1], "max_abs_err": train_worst["bwd"],
+         "ms": train_ms["bwd"], "plain_ms": train_ms["bwd_plain"]},
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -3,15 +3,18 @@
 The JAX package beside this one is the reference; every module here
 mirrors the JAX module of the same path and is tested against it on the
 same weights and inputs. This package imports `torch` and never `jax`.
-Jax-free code of the JAX package (`utils/config.py`) is imported, not
-copied.
+Jax-free code of the JAX package (`utils/config.py`, the host-side
+metrics) is imported, not copied.
 
 Layering (bottom-up), as far as the port reaches so far:
   ops/       preprocessing, the plain TF1-semantics LSTM scan, and the
-             hand-written CUDA recurrence kernel (ops/csrc, ops/kernels)
+             hand-written CUDA recurrence kernels (ops/csrc, ops/kernels):
+             the forward-only scan and the train forward and backward
   models/    registry, MoeModel, HierarchicalLstmModel
-  train/     the forward half of the train/eval step (preprocess_batch,
-             forward_student, forward_teacher)
+  losses     the label loss and the two distillation losses
+  metrics/   device-side top-k and PERR
+  train/     TF-semantics optimizers, the training state, and the steps:
+             preprocessing, the tower forwards, distill and finetune
   weights    numpy parameter bridge to and from the JAX pytree layout
   serving    Predictor: bf16 student/teacher serving on one device
 """

@@ -23,6 +23,9 @@ from efficientvideoclassification_youtube8m_torch.models.base import (
 from efficientvideoclassification_youtube8m_torch.ops.kernels.lstm_scan import (
     multi_lstm_scan_fused,
 )
+from efficientvideoclassification_youtube8m_torch.ops.kernels.lstm_train import (
+    multi_lstm_scan_train_fused,
+)
 from efficientvideoclassification_youtube8m_torch.ops.lstm import (
     init_multi_lstm,
     multi_lstm_scan,
@@ -65,7 +68,14 @@ class HierarchicalLstmModel(nn.Module):
                 classifier: Optional[str] = None,
                 compute_dtype: torch.dtype = torch.float32,
                 use_kernel: bool = False,
+                use_kernel_train: bool = False,
                 **classifier_kwargs) -> Dict[str, Any]:
+        """`use_kernel` runs both levels through the forward-only bf16
+        kernel (inference; it records no gradient), `use_kernel_train`
+        through the differentiable train kernels (ops/kernels/
+        lstm_train.py, bf16 whatever `compute_dtype` says, as the JAX
+        `pallas_train` path); otherwise the plain scan in
+        `compute_dtype`."""
         if classifier is not None and classifier != self.classifier.name:
             raise ValueError(f"the module's classifier is a "
                              f"{self.classifier.name}, not {classifier}")
@@ -74,9 +84,13 @@ class HierarchicalLstmModel(nn.Module):
             raise ValueError(f"{T} frames do not split into {num_chunks} chunks")
         chunk_len = T // num_chunks
 
-        # the fused bf16 recurrence (ops/kernels/lstm_scan.py) or the plain scan
-        scan_fn = (multi_lstm_scan_fused if use_kernel else functools.partial(
-            multi_lstm_scan, compute_dtype=compute_dtype))
+        if use_kernel_train:
+            scan_fn = multi_lstm_scan_train_fused
+        elif use_kernel:
+            scan_fn = multi_lstm_scan_fused
+        else:
+            scan_fn = functools.partial(multi_lstm_scan,
+                                        compute_dtype=compute_dtype)
 
         # L1: fold chunks into the batch axis -> one shared-weight scan.
         x_chunks = model_input.reshape(B * num_chunks, chunk_len, D)

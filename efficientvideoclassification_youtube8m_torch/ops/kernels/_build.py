@@ -3,9 +3,9 @@
 Each `ops/csrc/<name>.cu` has a plain C interface and is compiled with
 `nvcc` into a shared library, loaded with `ctypes`. The build happens at
 first use, never at import, into `build/kernels/` at the root of the
-checkout, keyed by a hash of the source and the flags, so a fresh
-checkout builds once and an edited source rebuilds. A missing `nvcc` or
-a failed build raises.
+checkout, keyed by a hash of the source, the shared headers and the
+flags, so a fresh checkout builds once and an edited source or header
+rebuilds. A missing `nvcc` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -42,34 +42,54 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for `ops/csrc/<name>.cu` is (or will be) built."""
-    digest = hashlib.sha256(
-        (CSRC_DIR / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library for `ops/csrc/<name>.cu` is (or will be) built.
+    The key covers the source, every header in `ops/csrc/` (the sources
+    share them) and the flags."""
+    digest = hashlib.sha256()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Sequence[str]) -> None:
+    """Build the libraries of `ops/csrc/<name>.cu` that are missing, one
+    nvcc process per source, all started together. The compiler's
+    output, with ptxas' register and shared-memory report, is kept beside
+    each library as `<library>.log`. Raises if any build fails."""
+    jobs = []
+    for name in dict.fromkeys(names):
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, cmd, proc))
+    failed = []
+    for name, out, tmp, cmd, proc in jobs:
+        output, _ = proc.communicate()
+        log = f"$ {' '.join(cmd)}\n{output}"
+        if proc.returncode != 0:
+            failed.append(f"building {name}.cu failed:\n{log}")
+            continue
+        out.with_name(out.name + ".log").write_text(log)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load_library(name: str, declare: Callable[[ctypes.CDLL], None]
                  ) -> ctypes.CDLL:
     """Build `ops/csrc/<name>.cu` if needed and load it (once per process);
-    `declare` sets the argument and result types of its C functions.
-    The compiler's output, with ptxas' register and shared-memory report,
-    is kept beside the library as `<library>.log`."""
+    `declare` sets the argument and result types of its C functions."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    out = library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        if proc.returncode != 0:
-            raise RuntimeError(f"building {name}.cu failed:\n{log}")
-        out.with_name(out.name + ".log").write_text(log)
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    build([name])
+    lib = ctypes.CDLL(str(library_path(name)))
     declare(lib)
     _LIBS[name] = lib
     return lib

@@ -73,21 +73,11 @@ def load_kernel() -> ctypes.CDLL:
     return _build.load_library(_LIB_NAME, _declare)
 
 
-def lstm_chunk_scan(
-    x_proj_tm: torch.Tensor,  # [T, B, 4H] bf16, time-major (x @ Wx, no bias)
-    w_h: torch.Tensor,  # [H, 4H] (any float dtype; cast to bf16)
-    bias: torch.Tensor,  # [4H] (cast to f32)
-    seq_len: torch.Tensor,  # [B] integer
-    forget_bias: float = 1.0,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused T-step LSTM layer scan (time-major IO). Returns
-    (outputs bf16 [T,B,H], final_c f32 [B,H], final_h f32 [B,H]).
-
-    On CUDA tensors this launches ops/csrc/lstm_chunk_scan.cu (T step
-    launches on the current stream, no synchronisation) and adds one to
-    `lstm_chunk_scan.launches`; on CPU tensors it runs
-    `lstm_chunk_scan_reference`. Anything the kernel does not take
-    raises."""
+def check_scan_inputs(x_proj_tm: torch.Tensor, w_h: torch.Tensor,
+                      bias: torch.Tensor, seq_len: torch.Tensor
+                      ) -> Tuple[int, int, int]:
+    """The shape, dtype and device checks that the forward recurrence
+    kernels share. Returns (T, B, H)."""
     if x_proj_tm.dim() != 3 or x_proj_tm.shape[-1] % 4:
         raise ValueError(f"x_proj_tm must be [T, B, 4H], got {tuple(x_proj_tm.shape)}")
     T, B, G = x_proj_tm.shape
@@ -108,14 +98,45 @@ def lstm_chunk_scan(
     for name, tensor in (("w_h", w_h), ("bias", bias), ("seq_len", seq_len)):
         if tensor.device != dev:
             raise ValueError(f"{name} is on {tensor.device}, x_proj_tm on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the LSTM kernels run on cpu or cuda, not {dev.type}")
+    if dev.type == "cuda" and H % 8:
+        raise ValueError(f"the CUDA kernels need H % 8 == 0, got H={H}")
+    return T, B, H
 
+
+def lstm_chunk_scan(
+    x_proj_tm: torch.Tensor,  # [T, B, 4H] bf16, time-major (x @ Wx, no bias)
+    w_h: torch.Tensor,  # [H, 4H] (any float dtype; cast to bf16)
+    bias: torch.Tensor,  # [4H] (cast to f32)
+    seq_len: torch.Tensor,  # [B] integer
+    forget_bias: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused T-step LSTM layer scan (time-major IO). Returns
+    (outputs bf16 [T,B,H], final_c f32 [B,H], final_h f32 [B,H]).
+
+    On CUDA tensors this launches ops/csrc/lstm_chunk_scan.cu (T step
+    launches on the current stream, no synchronisation) and adds one to
+    `lstm_chunk_scan.launches`; on CPU tensors it runs
+    `lstm_chunk_scan_reference`. Anything the kernel does not take
+    raises.
+
+    The scan is forward-only: it records no autograd graph. So that the
+    LSTM parameters can never silently get no gradient, a call with grad
+    mode on and an input that requires grad raises on either device;
+    training goes through ops/kernels/lstm_train.py."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x_proj_tm, w_h, bias)):
+        raise RuntimeError(
+            "lstm_chunk_scan is forward-only and records no gradient; call "
+            "it under torch.no_grad(), or train through "
+            "ops.kernels.lstm_train (LstmLayerTrain, "
+            "multi_lstm_scan_train_fused)")
+    T, B, H = check_scan_inputs(x_proj_tm, w_h, bias, seq_len)
+    dev = x_proj_tm.device
     if dev.type == "cpu":
         return lstm_chunk_scan_reference(x_proj_tm, w_h, bias, seq_len,
                                          forget_bias)
-    if dev.type != "cuda":
-        raise ValueError(f"lstm_chunk_scan runs on cpu or cuda, not {dev.type}")
-    if H % 8:
-        raise ValueError(f"the CUDA kernel needs H % 8 == 0, got H={H}")
 
     w = w_h.to(torch.bfloat16)
     b = bias.to(torch.float32)

@@ -24,7 +24,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from efficientvideoclassification_youtube8m_torch.models import get_model
 from efficientvideoclassification_youtube8m_torch.ops.preprocess import (
     host_subsample,
     student_num_frames,
@@ -34,21 +33,9 @@ from efficientvideoclassification_youtube8m_torch.train.step import (
     forward_teacher,
     preprocess_batch,
 )
+from efficientvideoclassification_youtube8m_torch.train.state import init_model
 from efficientvideoclassification_youtube8m_torch.weights import load_jax_params
 from efficientvideoclassification_youtube8m_tpu.utils.config import TrainConfig
-
-
-def init_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
-               device=None) -> nn.Module:
-    """`cfg.model` at the config's sizes, with weights drawn from
-    `generator` (the counterpart of the JAX `model.init`)."""
-    return get_model(cfg.model)(
-        cfg.total_feature_size, cfg.num_classes,
-        lstm_cells=cfg.lstm_cells, lstm_layers=cfg.lstm_layers,
-        classifier=cfg.video_level_classifier_model,
-        classifier_kwargs={"num_mixtures": cfg.moe_num_mixtures},
-        generator=generator, device=device,
-    )
 
 
 class Predictor:

@@ -1,1 +1,3 @@
-"""Train/eval steps. Only the forward half (train.step) is ported so far."""
+"""Training: the distill and finetune steps (train.step), TF-semantics
+optimizers (train.optimizer) and the training state (train.state). The
+validate and eval steps are not ported yet."""

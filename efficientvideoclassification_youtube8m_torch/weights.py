@@ -48,7 +48,8 @@ def load_jax_params(model: nn.Module, tree: Any) -> nn.Module:
                              f"module {tuple(state[name].shape)}")
     with torch.no_grad():
         for name, value in flat.items():
-            state[name].copy_(torch.from_numpy(np.array(value, np.float32)))
+            # in the tree's own dtype; copy_ casts once, to the parameter's
+            state[name].copy_(torch.from_numpy(np.array(value)))
     return model
 
 

@@ -128,8 +128,9 @@ def test_fused_stack_matches_pallas_interpret(num_layers):
     xs = np.random.default_rng(4).normal(size=(B, T, D)).astype(np.float32)
     want = multi_lstm_scan_pallas(jparams, jnp.asarray(xs), jnp.asarray(SEQ),
                                   tile_b=8, interpret=True)
-    got = multi_lstm_scan_fused(tparams, torch.from_numpy(xs),
-                                torch.from_numpy(SEQ))
+    with torch.no_grad():
+        got = multi_lstm_scan_fused(tparams, torch.from_numpy(xs),
+                                    torch.from_numpy(SEQ))
     # bf16 roundings at the same places as the Pallas path, f32 sums:
     # agreement to f32 summation order (2.4e-7 measured at this seed)
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5)
@@ -153,6 +154,24 @@ def test_cpu_wrapper_counts_no_launch_and_builds_nothing(monkeypatch):
         assert torch.equal(g, w)
     assert lstm_chunk_scan.launches == before
     assert _build.loaded() == {}
+
+
+@pytest.mark.parametrize("needs_grad", ["x_proj_tm", "w_h", "bias"])
+def test_forward_only_scan_refuses_to_drop_gradients(needs_grad):
+    """Under grad mode, an input that requires grad would get no gradient
+    from the forward-only kernel, so the wrapper raises (on the CPU as on
+    the card) and points to the train path; under no_grad it runs."""
+    T, B, H = 2, 3, 8
+    args = {"x_proj_tm": torch.zeros(T, B, 4 * H, dtype=torch.bfloat16),
+            "w_h": torch.zeros(H, 4 * H), "bias": torch.zeros(4 * H)}
+    args[needs_grad].requires_grad_(True)
+    seq = torch.full((B,), T)
+    with pytest.raises(RuntimeError, match="lstm_train"):
+        lstm_chunk_scan(args["x_proj_tm"], args["w_h"], args["bias"], seq)
+    with torch.no_grad():
+        outs, _, _ = lstm_chunk_scan(args["x_proj_tm"], args["w_h"],
+                                     args["bias"], seq)
+    assert outs.shape == (T, B, H)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -24,7 +24,10 @@ print(len(sys.argv) - 1)
 def test_port_imports_no_jax():
     modules = [port.__name__] + [
         m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
-    assert f"{port.__name__}.ops.kernels.lstm_scan" in modules
+    for name in ("ops.kernels.lstm_scan", "ops.kernels.lstm_train", "losses",
+                 "metrics.eval_util", "train.optimizer", "train.state",
+                 "train.step"):
+        assert f"{port.__name__}.{name}" in modules
     out = subprocess.run([sys.executable, "-c", CHECK, *modules], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -42,6 +42,18 @@ def test_round_trip_is_exact():
         np.testing.assert_array_equal(got, want)
 
 
+def test_float64_tree_loads_bit_exactly_into_a_float64_module():
+    from efficientvideoclassification_youtube8m_torch.ops.lstm import init_multi_lstm
+
+    rng = np.random.default_rng(0)
+    tree = [{"kernel": rng.normal(size=(13, 20)), "bias": rng.normal(size=20)}]
+    model = load_jax_params(init_multi_lstm(None, 8, 5, 1, dtype=torch.float64),
+                            tree)
+    assert model[0].kernel.dtype == torch.float64
+    assert torch.equal(model[0].kernel, torch.from_numpy(tree[0]["kernel"]))
+    assert torch.equal(model[0].bias, torch.from_numpy(tree[0]["bias"]))
+
+
 def test_mismatches_raise_before_anything_is_copied():
     model = _module()
     before = {k: v.clone() for k, v in model.state_dict().items()}

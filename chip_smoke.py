@@ -7,8 +7,9 @@ Builds the hand-written CUDA kernels from this checkout's sources (one
 nvcc per source, started together), holds each against its plain
 PyTorch version at the shapes its path gives it, serves the flagship
 student through `Predictor`, trains the flagship by distillation through
-`build_distill_train_step`, and checks that the recurrences of both
-paths went through the kernels. Phases:
+`build_distill_train_step`, serves it int8 through
+`Predictor(quantize="int8")`, runs the eval steps, and checks that the
+recurrences of every path went through the kernels. Phases:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA
      versions, the kernels' build time and ptxas report;
@@ -29,7 +30,17 @@ paths went through the kernels. Phases:
      the plain-scan path from the same weights, three steps of
      `build_distill_train_step` (launch counts, finite losses, the
      global step, train videos/s on both paths), and one
-     `build_finetune_step` step.
+     `build_finetune_step` step;
+  7. `lstm_chunk_scan_int8` against `lstm_chunk_scan_int8_reference` at
+     the layer shapes of phases 2 and 5, on inputs made as the int8 path
+     makes them, with times;
+  8. the flagship student through `Predictor(quantize="int8")` at
+     serve_batch 256 on requests of 256, 100 and 513 videos: the int8
+     launch count, the agreement with the plain int8 scan and the
+     distance to the bf16 kernel path, one teacher request, int8 and bf16
+     serving videos/s; then one batch of 256 through
+     `build_quantized_eval_step` and `build_eval_step` on the kernel
+     paths, their top-k overlap and PERR, and their host packs decoded.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is {"kernels": [...]}; the last is {"ok": true, "device": {...}}. With no
@@ -51,7 +62,9 @@ from efficientvideoclassification_youtube8m_torch.metrics.eval_util import (
     train_step_metrics,
 )
 from efficientvideoclassification_youtube8m_torch.ops.kernels import _build
+from efficientvideoclassification_youtube8m_torch.ops import quantize
 from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_scan
+from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_scan_int8
 from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_train
 from efficientvideoclassification_youtube8m_torch.serving import (
     Predictor,
@@ -67,13 +80,15 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
 )
 from efficientvideoclassification_youtube8m_torch.train.step import (
     build_distill_train_step,
+    build_eval_step,
     build_finetune_step,
+    build_quantized_eval_step,
     distill_loss_and_grads,
 )
 
 CSRC = "efficientvideoclassification_youtube8m_torch/ops/csrc/"
 PALLAS = "efficientvideoclassification_youtube8m_tpu/ops/pallas/lstm_scan.py:"
-LIBRARIES = ("lstm_chunk_scan", "lstm_train")
+LIBRARIES = ("lstm_chunk_scan", "lstm_train", "lstm_chunk_scan_int8")
 
 # Kernel against plain version, both on bf16 operands with f32 sums: the
 # sums run in another order, so a bf16 output can round an ulp or two
@@ -103,6 +118,16 @@ TOL_GRAD_REL = 3e-2
 # cancelling terms; 6e-6 or less elsewhere).
 TOL_LOSS_REL = 1e-3
 TOL_LOSS_ABS = 1e-5
+# int8 kernel against its plain version on the same inputs: both take
+# true quotients, round half to even and sum exactly, and the kernel
+# rounds every gate and cell operation where the plain version does, so
+# they differ only where a transcendental of the card's library lands an
+# ulp apart. Such an ulp can flip a rounding tie of h_q, which moves a gate
+# by about max|h| * max|Wh| / 127 (2.4e-4 at the flagship's glorot
+# weights); the bf16 kernel's bounds (1e-2 on bf16 outs, 2e-3 on the f32
+# finals) cover a few of those carried over T steps.
+TOL_INT8_OUTS = 1e-2
+TOL_INT8_FINALS = 2e-3
 
 # (name, T, B, H, D_in): the layers of the flagship at batch 256, in
 # serving (serve_batch) and in training (batch_size). L1 folds 5 (student) or 20 (teacher) chunks into the batch axis;
@@ -149,6 +174,7 @@ def phase_card() -> str:
     _build.build(LIBRARIES)
     lstm_scan.load_kernel()
     lstm_train.load_kernel()
+    lstm_scan_int8.load_kernel()
     log(f"[1] kernel builds (parallel) + load: {time.perf_counter() - t0:.3f} s")
     for name in LIBRARIES:
         for line in _build.build_log(name).splitlines():
@@ -512,6 +538,182 @@ def phase_distill(smi):
     return launches
 
 
+def int8_layer_case(T, B, H, D, gen):
+    """Inputs of one layer as the int8 path makes them: the int8 product
+    of unit-norm rows of x and glorot weights quantized per column, stored
+    bf16; Wh quantized the same way; a bias; sequence lengths holding 0, T
+    and mixed values."""
+    dev = "cuda"
+    limit = math.sqrt(6.0 / (D + H + 4 * H))
+    x = torch.randn(T, B, D, generator=gen, device=dev)
+    x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    w_x = (torch.rand(D, 4 * H, generator=gen, device=dev) * 2 - 1) * limit
+    w_h = (torch.rand(H, 4 * H, generator=gen, device=dev) * 2 - 1) * limit
+    bias = torch.randn(4 * H, generator=gen, device=dev) * 0.1
+    seq = torch.randint(0, T + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    seq[0], seq[-1] = 0, T
+    wx_q, wx_s = quantize.quantize_weight(w_x)
+    wh_q, wh_s = quantize.quantize_weight(w_h)
+    xp = quantize.int8_dot(x, wx_q, wx_s).to(torch.bfloat16)
+    return xp, wh_q, wh_s, bias, seq
+
+
+def phase_int8_kernel():
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = 0.0
+    times = {}
+    for name, T, B, H, D in LAYER_SHAPES:
+        args = int8_layer_case(T, B, H, D, gen)
+        outs, c, h = lstm_scan_int8.lstm_chunk_scan_int8(*args)
+        r_outs, r_c, r_h = lstm_scan_int8.lstm_chunk_scan_int8_reference(*args)
+        torch.cuda.synchronize()
+        seq = args[4]
+        past = torch.arange(T, device="cuda")[:, None] >= seq[None, :]
+        zeros_past_seq = bool((outs[past] == 0).all())
+        empty = seq == 0
+        zero_state = bool((c[empty] == 0).all() and (h[empty] == 0).all())
+        err = {
+            "outs": (outs.float() - r_outs.float()).abs().max().item(),
+            "c_fin": (c - r_c).abs().max().item(),
+            "h_fin": (h - r_h).abs().max().item(),
+        }
+        iters = 20 if B >= 256 else 5
+        ms = cuda_ms(lambda: lstm_scan_int8.lstm_chunk_scan_int8(*args), iters)
+        plain_ms = cuda_ms(lambda: lstm_scan_int8.lstm_chunk_scan_int8_reference(*args),
+                           iters)
+        times[name] = (ms, plain_ms)
+        log(f"[7] {name} T={T} B={B} H={H}: max|diff| outs {err['outs']:.3g} "
+            f"c_fin {err['c_fin']:.3g} h_fin {err['h_fin']:.3g}; "
+            f"zeros past seq {zeros_past_seq}, zero state at seq 0 {zero_state}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not (zeros_past_seq and zero_state):
+            raise AssertionError(f"{name}: int8 masking is wrong")
+        if not all(map(math.isfinite, err.values())):
+            raise AssertionError(f"{name}: non-finite difference {err}")
+        if (err["outs"] > TOL_INT8_OUTS
+                or max(err["c_fin"], err["h_fin"]) > TOL_INT8_FINALS):
+            raise AssertionError(f"{name}: int8 kernel and plain version disagree: {err}")
+        worst = max(worst, *err.values())
+    log(f"[7] tolerances: outs {TOL_INT8_OUTS}, finals {TOL_INT8_FINALS}")
+    return worst, times
+
+
+def decode_host_pack(pack: np.ndarray, k: int):
+    """(top-k values, indices, per-example CE, PERR) of a paired-index host
+    pack (train/step._pack_host_outputs): two indices per f32 lane, bits
+    31+30 set as the layout marker."""
+    h = (k + 1) // 2
+    words = np.ascontiguousarray(pack[:, k:k + h]).view(np.int32)
+    if not (words < 0).all():
+        raise AssertionError("the host pack's index lanes lack the paired marker")
+    words = words & 0x3FFFFFFF
+    idx = np.empty((pack.shape[0], 2 * h), np.int64)
+    idx[:, 0::2] = words & 0xFFFF
+    idx[:, 1::2] = words >> 16
+    return pack[:, :k], idx[:, :k], pack[:, k + h], pack[:, k + h + 1]
+
+
+def check_eval_outputs(out, labels, num_classes, what):
+    """Finite predictions in [0, 1], and a host pack that decodes to the
+    step's own top-k, per-example CE and PERR. Returns the host metrics."""
+    check_predictions(out["predictions"].cpu().numpy(), labels.shape[0],
+                      num_classes, what)
+    k = out["topk_idx"].shape[1]
+    vals, idx, loss, perr = decode_host_pack(out["host_pack"].cpu().numpy(), k)
+    for name, got, want in (("topk_val", vals, out["topk_val"]),
+                            ("topk_idx", idx, out["topk_idx"]),
+                            ("per_example_loss", loss, out["per_example_loss"]),
+                            ("perr_precision", perr, out["perr_precision"])):
+        if not np.array_equal(got, want.cpu().numpy()):
+            raise AssertionError(f"{what}: the host pack's {name} differs from the step's")
+    return train_step_metrics(vals, idx, labels.cpu().numpy(), perr)
+
+
+def phase_int8_serving(smi):
+    cfg = TrainConfig(compute_dtype="bfloat16")
+    model = init_model(cfg, torch.Generator().manual_seed(0), device="cuda")
+    int8_p = Predictor(cfg, model, serve_batch=SERVE_BATCH, device="cuda",
+                       quantize="int8")
+    plain_p = Predictor(cfg.replace(use_pallas_inference=False), model,
+                        serve_batch=SERVE_BATCH, device="cuda", quantize="int8")
+    bf16_p = Predictor(cfg, model, serve_batch=SERVE_BATCH, device="cuda")
+    sizes = (256, 100, 513)
+    batches = list(requests(sizes, cfg, seed=1))
+    levels = 2 * cfg.lstm_layers  # wrapper calls per served chunk
+    expected = levels * sum(math.ceil(n / SERVE_BATCH) for n in sizes)
+
+    lstm_scan_int8.lstm_chunk_scan_int8.launches = 0
+    lstm_scan.lstm_chunk_scan.launches = 0
+    served = [int8_p.predict(feats, nf) for feats, nf in batches]
+    torch.cuda.synchronize()
+    launches = lstm_scan_int8.lstm_chunk_scan_int8.launches
+    log(f"[8] student int8 served {sizes}: {launches} int8 kernel launches "
+        f"(expected {expected}), {lstm_scan.lstm_chunk_scan.launches} bf16")
+    if launches != expected or lstm_scan.lstm_chunk_scan.launches:
+        raise AssertionError(f"the int8 kernel ran {launches} times, not {expected}")
+
+    worst = to_bf16 = 0.0
+    for (feats, nf), probs in zip(batches, served):
+        check_predictions(probs, len(nf), cfg.num_classes, "int8 student")
+        worst = max(worst, float(np.abs(probs - plain_p.predict(feats, nf)).max()))
+        to_bf16 = max(to_bf16, float(np.abs(probs - bf16_p.predict(feats, nf)).max()))
+    log(f"[8] predictions finite in [0, 1]; max|int8 kernel - plain int8 scan| "
+        f"{worst:.3g} (tolerance {TOL_PREDICTIONS}); max|int8 - bf16 kernel path| "
+        f"{to_bf16:.3g} (same weights; reported, not bounded)")
+    if worst > TOL_PREDICTIONS:
+        raise AssertionError("the int8 kernel path and the plain int8 path disagree")
+
+    teacher_k = Predictor(cfg, model, tower="teacher", serve_batch=SERVE_BATCH,
+                          device="cuda", quantize="int8")
+    teacher_p = Predictor(cfg.replace(use_pallas_inference=False), model,
+                          tower="teacher", serve_batch=SERVE_BATCH, device="cuda",
+                          quantize="int8")
+    feats, nf = next(requests((64,), cfg, seed=3))
+    before = lstm_scan_int8.lstm_chunk_scan_int8.launches
+    probs = teacher_k.predict(feats, nf)
+    if (lstm_scan_int8.lstm_chunk_scan_int8.launches - before
+            != levels * math.ceil(64 / SERVE_BATCH)):
+        raise AssertionError("the int8 teacher did not run through the kernel")
+    check_predictions(probs, len(nf), cfg.num_classes, "int8 teacher")
+    t_err = float(np.abs(probs - teacher_p.predict(feats, nf)).max())
+    log(f"[8] int8 teacher served 64: predictions finite in [0, 1]; "
+        f"max|kernel - plain int8 scan| {t_err:.3g} (tolerance {TOL_PREDICTIONS})")
+    if t_err > TOL_PREDICTIONS:
+        raise AssertionError("the int8 teacher's kernel and plain paths disagree")
+
+    feats, nf = next(requests((8 * SERVE_BATCH,), cfg, seed=2))
+    rates = {}
+    for name, p in (("int8", int8_p), ("bf16", bf16_p), ("int8", int8_p),
+                    ("bf16", bf16_p)):
+        rates.setdefault(name, []).append(videos_per_s(p, feats, nf))
+    log(f"[8] student serving, serve_batch {SERVE_BATCH}, {len(nf)} videos per "
+        f"predict, kernel paths, median of 3 in each of two turns: int8 "
+        + ", ".join(f"{r:.1f}" for r in rates["int8"]) + " videos/s, bf16 "
+        + ", ".join(f"{r:.1f}" for r in rates["bf16"]) + f" videos/s ({smi})")
+
+    feats, labels, nf = distill_batch(cfg, SERVE_BATCH, seed=8)
+    before = (lstm_scan_int8.lstm_chunk_scan_int8.launches,
+              lstm_scan.lstm_chunk_scan.launches)
+    out_q = build_quantized_eval_step(cfg)(int8_p.qparams, feats, labels, nf)
+    out_b = build_eval_step(cfg)(model, feats, labels, nf)
+    torch.cuda.synchronize()
+    delta = (lstm_scan_int8.lstm_chunk_scan_int8.launches - before[0],
+             lstm_scan.lstm_chunk_scan.launches - before[1])
+    if delta != (levels, levels):
+        raise AssertionError(f"the eval steps made {delta} int8/bf16 launches, "
+                             f"not {levels} each")
+    host_q = check_eval_outputs(out_q, labels, cfg.num_classes, "int8 eval step")
+    host_b = check_eval_outputs(out_b, labels, cfg.num_classes, "bf16 eval step")
+    idx_q, idx_b = out_q["topk_idx"].cpu().numpy(), out_b["topk_idx"].cpu().numpy()
+    overlap = float(np.mean([len(set(a) & set(b)) / len(a) for a, b in zip(idx_q, idx_b)]))
+    log(f"[8] eval steps, batch {SERVE_BATCH}, kernel paths ({delta[0]} int8 and "
+        f"{delta[1]} bf16 launches): top-20 overlap int8 vs bf16 {overlap:.4f}; "
+        f"PERR int8 {host_q['perr']:.4g}, bf16 {host_b['perr']:.4g}; hit@1 int8 "
+        f"{host_q['hit_at_one']:.4g}, bf16 {host_b['hit_at_one']:.4g}; host packs "
+        f"decode to each step's own top-k, CE and PERR")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -522,10 +724,13 @@ def main() -> None:
     launches = phase_serving(smi)
     train_worst, train_times = phase_train_kernels()
     train_launches = phase_distill(smi)
+    int8_worst, int8_times = phase_int8_kernel()
+    int8_launches = phase_int8_serving(smi)
     if any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules):
         raise AssertionError("the port imported jax")
     ms, plain_ms = times["student_L1"]
     train_ms = train_times["student_L1"]
+    int8_ms, int8_plain_ms = int8_times["student_L1"]
     log(f"[1] card: {smi}")
     log(json.dumps({"kernels": [
         {"name": "lstm_chunk_scan", "route": "cuda",
@@ -540,6 +745,10 @@ def main() -> None:
          "source": CSRC + "lstm_train.cu", "replaces": PALLAS + "333",
          "launches": train_launches[1], "max_abs_err": train_worst["bwd"],
          "ms": train_ms["bwd"], "plain_ms": train_ms["bwd_plain"]},
+        {"name": "lstm_chunk_scan_int8", "route": "cuda",
+         "source": CSRC + "lstm_chunk_scan_int8.cu", "replaces": PALLAS + "475",
+         "launches": int8_launches, "max_abs_err": int8_worst, "ms": int8_ms,
+         "plain_ms": int8_plain_ms},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

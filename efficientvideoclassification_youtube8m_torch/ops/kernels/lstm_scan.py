@@ -14,7 +14,7 @@ For a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -74,10 +74,12 @@ def load_kernel() -> ctypes.CDLL:
 
 
 def check_scan_inputs(x_proj_tm: torch.Tensor, w_h: torch.Tensor,
-                      bias: torch.Tensor, seq_len: torch.Tensor
+                      bias: torch.Tensor, seq_len: torch.Tensor,
+                      w_dtype: Optional[torch.dtype] = None
                       ) -> Tuple[int, int, int]:
     """The shape, dtype and device checks that the forward recurrence
-    kernels share. Returns (T, B, H)."""
+    kernels share. `w_h` must have `w_dtype` where given (the int8 scan),
+    else be floating point. Returns (T, B, H)."""
     if x_proj_tm.dim() != 3 or x_proj_tm.shape[-1] % 4:
         raise ValueError(f"x_proj_tm must be [T, B, 4H], got {tuple(x_proj_tm.shape)}")
     T, B, G = x_proj_tm.shape
@@ -90,8 +92,13 @@ def check_scan_inputs(x_proj_tm: torch.Tensor, w_h: torch.Tensor,
         raise ValueError(f"seq_len must be [{B}], got {tuple(seq_len.shape)}")
     if x_proj_tm.dtype != torch.bfloat16:
         raise TypeError(f"x_proj_tm must be bfloat16, got {x_proj_tm.dtype}")
-    if not (w_h.is_floating_point() and bias.is_floating_point()):
-        raise TypeError("w_h and bias must be floating point")
+    if w_dtype is not None:
+        if w_h.dtype != w_dtype:
+            raise TypeError(f"w_h must be {w_dtype}, got {w_h.dtype}")
+    elif not w_h.is_floating_point():
+        raise TypeError("w_h must be floating point")
+    if not bias.is_floating_point():
+        raise TypeError("bias must be floating point")
     if seq_len.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"seq_len must be int32 or int64, got {seq_len.dtype}")
     dev = x_proj_tm.device

@@ -11,8 +11,11 @@ frame batches:
 Serves the STUDENT (the paper's deliverable: ~10x fewer frames) by
 default; `tower="teacher"` serves the teacher. In bf16 on a CUDA device
 the LSTM recurrences run in the hand-written kernel
-(ops/kernels/lstm_scan.py). Student requests are strided on the host, so
-only 1/every_n of the uint8 bytes cross to the device.
+(ops/kernels/lstm_scan.py). `quantize="int8"` serves the int8 weight +
+activation forward (ops/quantize.py): the weights are quantized once, at
+construction, and on a CUDA device the recurrences run in the int8 kernel
+(ops/kernels/lstm_scan_int8.py). Student requests are strided on the
+host, so only 1/every_n of the uint8 bytes cross to the device.
 """
 
 from __future__ import annotations
@@ -27,6 +30,10 @@ from torch import nn
 from efficientvideoclassification_youtube8m_torch.ops.preprocess import (
     host_subsample,
     student_num_frames,
+)
+from efficientvideoclassification_youtube8m_torch.ops.quantize import (
+    quantize_hierarchical_params,
+    quantized_hierarchical_forward,
 )
 from efficientvideoclassification_youtube8m_torch.train.step import (
     forward_student,
@@ -47,10 +54,6 @@ class Predictor:
             raise ValueError(f"tower must be 'student' or 'teacher', got {tower!r}")
         if quantize not in ("none", "int8"):
             raise ValueError(f"quantize must be 'none' or 'int8', got {quantize!r}")
-        if quantize == "int8":
-            raise NotImplementedError(
-                "int8 serving comes with the int8 kernel port "
-                "(ROADMAP Queue 1 item 10, Queue 2 item 4)")
         if sequence_parallel:
             raise NotImplementedError(
                 "sequence-parallel serving comes with the parallel port "
@@ -68,12 +71,34 @@ class Predictor:
         # student requests are strided on the HOST (predict below), so
         # only 1/every_n of the uint8 bytes cross the host->device edge
         self._host_stride = cfg.every_n if tower == "student" else 1
-        if isinstance(params_or_module, nn.Module):
-            self.model = params_or_module.to(self.device)
+        self.model = self.qparams = None
+        if quantize == "int8":
+            self._init_int8(cfg, params_or_module, tower)
+        elif isinstance(params_or_module, nn.Module):
+            self.model = params_or_module.to(self.device).eval()
         else:
             self.model = load_jax_params(init_model(cfg, device=self.device),
-                                         params_or_module)
-        self.model.eval()
+                                         params_or_module).eval()
+
+    def _init_int8(self, cfg: TrainConfig, params_or_module, tower: str):
+        """int8 weight+activation forward: both LSTM product sites and the
+        MoE head run int8 x int8 -> int32; gate math stays f32. The
+        weights are quantized ONCE here (per-channel scales) and live on
+        the device as int8."""
+        if (cfg.model != "HierarchicalLstmModel"
+                or cfg.video_level_classifier_model != "MoeModel"):
+            raise ValueError(
+                "quantize='int8' covers the flagship "
+                "HierarchicalLstmModel + MoeModel configuration")
+        self._num_chunks = (cfg.num_inputs_L1 if tower == "student"
+                            else cfg.num_inputs_to_lstm)
+        self.qparams = quantize_hierarchical_params(
+            params_or_module, cfg.total_feature_size, cfg.lstm_cells,
+            cfg.lstm_layers, device=self.device)
+        # the JAX rule with "tpu" read as "cuda"; like it, independent of
+        # compute_dtype
+        self._use_kernel = (cfg.use_pallas_inference
+                            and self.device.type == "cuda")
 
     @classmethod
     def from_checkpoint(cls, train_dir: str, cfg: Optional[TrainConfig] = None,
@@ -91,13 +116,14 @@ class Predictor:
         nf = torch.from_numpy(num_frames).to(self.device, non_blocking=True)
         if self.tower == "student":
             # features arrive host-strided to every_n already
-            nfs = student_num_frames(nf, cfg.every_n, cfg.max_num_frames)
-            xs = preprocess_batch(cfg, feats, nfs)
-            out = forward_student(cfg, self.model, xs, nfs, inference=True)
-        else:
-            xs = preprocess_batch(cfg, feats, nf)
-            out = forward_teacher(cfg, self.model, xs, nf, inference=True)
-        return out["predictions"]
+            nf = student_num_frames(nf, cfg.every_n, cfg.max_num_frames)
+        xs = preprocess_batch(cfg, feats, nf)
+        if self.qparams is not None:
+            return quantized_hierarchical_forward(
+                self.qparams, xs, nf, self._num_chunks, cfg.num_classes,
+                cfg.moe_num_mixtures, use_kernel=self._use_kernel)
+        forward = forward_student if self.tower == "student" else forward_teacher
+        return forward(cfg, self.model, xs, nf, inference=True)["predictions"]
 
     def predict(self, features_u8: np.ndarray, num_frames: np.ndarray
                 ) -> np.ndarray:

@@ -1,6 +1,7 @@
-"""The train steps (port of the JAX package's train/step.py): input
-preprocessing, the model keyword rules, the teacher and student
-forwards, the distill step and the finetune step.
+"""The train and eval steps (port of the JAX package's train/step.py):
+input preprocessing, the model keyword rules, the teacher and student
+forwards, the distill and finetune steps, and the validate, eval and
+int8 eval steps with their packed host outputs.
 
 Input contract: raw uint8 features on the model's device; dequantize +
 l2-normalize run here.
@@ -20,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from efficientvideoclassification_youtube8m_torch import losses as losses_lib
 from efficientvideoclassification_youtube8m_torch.metrics.eval_util import (
@@ -31,6 +33,9 @@ from efficientvideoclassification_youtube8m_torch.ops.preprocess import (
     l2_normalize,
     student_num_frames,
     uniform_subsample,
+)
+from efficientvideoclassification_youtube8m_torch.ops.quantize import (
+    quantized_hierarchical_forward,
 )
 from efficientvideoclassification_youtube8m_torch.train.optimizer import (
     Optimizer,
@@ -54,12 +59,14 @@ def resolve_label_loss(cfg: TrainConfig) -> Callable:
 
 def _model_apply_kwargs(cfg: TrainConfig, device: torch.device,
                         inference: bool = False,
-                        kernel_train_mode: Optional[str] = None
+                        kernel_train_mode: Optional[str] = None,
+                        kernel_override: Optional[bool] = None
                         ) -> Dict[str, Any]:
     """Model keywords of the forward.
 
     Inference: the forward-only kernel for bf16 on a CUDA device when
-    `cfg.use_pallas_inference` is set. Training: the train kernels for
+    `cfg.use_pallas_inference` is set; `kernel_override` (the JAX
+    `pallas_override`) replaces that rule. Training: the train kernels for
     bf16 on a CUDA device when `cfg.lstm_pallas_train` is set (the JAX
     rule, with "tpu" read as "cuda"; the flags keep the names the shared
     config gives them). `kernel_train_mode` overrides the training rule:
@@ -74,7 +81,8 @@ def _model_apply_kwargs(cfg: TrainConfig, device: torch.device,
         "num_mixtures": cfg.moe_num_mixtures,
     }
     if inference:
-        kw["use_kernel"] = cfg.use_pallas_inference and bf16 and is_cuda
+        kw["use_kernel"] = (cfg.use_pallas_inference and bf16 and is_cuda
+                            if kernel_override is None else kernel_override)
     elif kernel_train_mode is None:
         kw["use_kernel_train"] = cfg.lstm_pallas_train and bf16 and is_cuda
     elif kernel_train_mode in ("on", "off"):
@@ -122,14 +130,15 @@ def forward_teacher(cfg: TrainConfig, model, model_input: torch.Tensor,
 
 def forward_student(cfg: TrainConfig, model, model_input_student: torch.Tensor,
                     num_frames_stud: torch.Tensor, inference: bool = False,
-                    kernel_train_mode: Optional[str] = None):
+                    kernel_train_mode: Optional[str] = None,
+                    kernel_override: Optional[bool] = None):
     """`create_model_inference`: the same architecture on the subsampled
     frames, with `cfg.num_inputs_L1` chunks."""
     _check_model(cfg, model)
     return model(
         model_input_student, num_frames_stud, num_chunks=cfg.num_inputs_L1,
         **_model_apply_kwargs(cfg, model_input_student.device, inference,
-                              kernel_train_mode),
+                              kernel_train_mode, kernel_override),
     )
 
 
@@ -282,5 +291,158 @@ def build_finetune_step(cfg: TrainConfig, optimizer: Optimizer,
             "perr_precision": perr_precision_on_device(preds, labels),
         }
         return state, metrics
+
+    return step
+
+
+# Paired-index host pack: two top-k indices per f32 lane. Bits 0-15 hold
+# the even index, 16-29 the odd one, and bits 31+30 are ALWAYS set: the
+# sign bit is the layout discriminator (a wide pack's index lanes are
+# non-negative floats), and with bit 30 set the exponent field is
+# 0x80..0xFE, a NEGATIVE NORMAL f32, never subnormal or NaN. Keeping the
+# exponent below 0xFF caps the packable class id at 0x3F7F = 16255
+# (YT8M: 4715).
+PACKED_IDX_MAX = 0x3F7F
+_PAIR_MARKER = -(1 << 30)  # bits 31+30 of an int32 (two's complement)
+
+
+def _pack_host_outputs(topk_val, topk_idx, per_example_loss, perr,
+                       num_classes: Optional[int] = None) -> torch.Tensor:
+    """One f32 host bundle per batch: top-k values | top-k indices |
+    per-example CE | PERR, read back by the JAX package's
+    `parallel.distributed.unpack_host_pack`.
+
+    When every class id fits (num_classes - 1 <= PACKED_IDX_MAX) the
+    indices travel as int16 PAIRS bitcast into f32 lanes, [B, k +
+    ceil(k/2) + 2], bit-exact; otherwise the wide [B, 2k + 2]
+    one-index-per-lane layout (exact for class ids < 2**24)."""
+    parts = [topk_val.to(torch.float32)]
+    if num_classes is not None and num_classes - 1 <= PACKED_IDX_MAX:
+        idx = topk_idx.to(torch.int32)
+        if idx.shape[1] % 2:
+            idx = F.pad(idx, (0, 1))
+        words = idx[:, 0::2] | (idx[:, 1::2] << 16) | _PAIR_MARKER
+        parts.append(words.contiguous().view(torch.float32))
+    else:
+        parts.append(topk_idx.to(torch.float32))
+    parts.append(per_example_loss.to(torch.float32)[:, None])
+    parts.append(perr.to(torch.float32)[:, None])
+    return torch.cat(parts, dim=1)
+
+
+def _check_eval_model(cfg: TrainConfig) -> None:
+    """Stands where the JAX eval steps call `_faithful_eval_rngs`, which
+    draws eval-time frame-sampling rngs for `DbofModel` under faithful
+    mode and none for the other models. DbofModel is not ported (ROADMAP
+    Queue 1 item 12), so it raises here instead of evaluating without
+    them."""
+    if cfg.model == "DbofModel":
+        raise NotImplementedError(
+            "DbofModel and its eval-time frame sampling are not ported yet "
+            "(ROADMAP Queue 1 item 12)")
+
+
+def _eval_outputs(predictions: torch.Tensor, labels: torch.Tensor,
+                  top_k: int) -> Dict[str, torch.Tensor]:
+    """The eval binaries' shared per-batch outputs: per-example CE,
+    device top-k, exact PERR, and the packed host bundle."""
+    eps = 10e-6
+    fl = labels.to(torch.float32)
+    per_example_loss = -torch.sum(
+        fl * torch.log(predictions + eps)
+        + (1 - fl) * torch.log(1 - predictions + eps), dim=1)
+    topk_val, topk_idx = topk_on_device(predictions, top_k)
+    perr = perr_precision_on_device(predictions, labels)
+    return {
+        "predictions": predictions,
+        "per_example_loss": per_example_loss,
+        "topk_val": topk_val,
+        "topk_idx": topk_idx,
+        "perr_precision": perr,
+        "host_pack": _pack_host_outputs(topk_val, topk_idx, per_example_loss,
+                                        perr, num_classes=predictions.shape[-1]),
+    }
+
+
+def build_validate_step(cfg: TrainConfig, top_k: int = 20):
+    """Student eval with the teacher present for L_REP
+    (validate.py:109-189): both towers forward-only. Returns
+    step(teacher, student, features_u8, labels, num_frames) -> the eight
+    loss scalars and the student's `_eval_outputs`."""
+    label_loss_fn = resolve_label_loss(cfg)
+    _check_eval_model(cfg)
+
+    @torch.no_grad()
+    def step(teacher, student, features_u8, labels, num_frames):
+        model_input = preprocess_batch(cfg, features_u8, num_frames)
+        model_input_s = uniform_subsample(model_input, cfg.every_n)
+        nf_student = student_num_frames(num_frames, cfg.every_n,
+                                        cfg.max_num_frames)
+        out_t = forward_teacher(cfg, teacher, model_input, num_frames,
+                                inference=True)
+        out_s = forward_student(cfg, student, model_input_s, nf_student,
+                                inference=True)
+        ls = _distill_losses(cfg, out_t, out_s, labels, label_loss_fn)
+        return {**ls, **_eval_outputs(out_s["predictions"], labels, top_k)}
+
+    return step
+
+
+def build_eval_step(cfg: TrainConfig, top_k: int = 20,
+                    kernel_override: Optional[bool] = None,
+                    host_subsampled: bool = False,
+                    aggregated: bool = False):
+    """Student-only eval (eval_finetune.py:108-176). Returns
+    step(student, features_u8, labels, num_frames) -> `_eval_outputs`.
+
+    `host_subsampled`: the frames were strided to every_n on the host;
+    `num_frames` stays the ORIGINAL count. `kernel_override` replaces the
+    rule that picks the forward-only kernel."""
+    if aggregated:
+        raise NotImplementedError(
+            "the aggregated --frame_features=False branch is not ported yet "
+            "(ROADMAP Queue 1 item 12)")
+    _check_eval_model(cfg)
+
+    @torch.no_grad()
+    def step(student, features_u8, labels, num_frames):
+        # subsample uint8 first: only the kept frames are preprocessed
+        nf_student = student_num_frames(num_frames, cfg.every_n,
+                                        cfg.max_num_frames)
+        sub = (features_u8 if host_subsampled
+               else uniform_subsample(features_u8, cfg.every_n))
+        model_input_s = preprocess_batch(cfg, sub, nf_student)
+        out_s = forward_student(cfg, student, model_input_s, nf_student,
+                                inference=True, kernel_override=kernel_override)
+        return _eval_outputs(out_s["predictions"], labels, top_k)
+
+    return step
+
+
+def build_quantized_eval_step(cfg: TrainConfig, top_k: int = 20,
+                              host_subsampled: bool = False):
+    """`build_eval_step` with the int8 forward (ops/quantize.py): takes
+    QUANTIZED parameters (`ops.quantize.quantize_hierarchical_params`);
+    same outputs. On a CUDA device with `cfg.use_pallas_inference` the
+    recurrences run in the int8 kernel. Flagship HierarchicalLstm + MoE
+    only."""
+    if (cfg.model != "HierarchicalLstmModel"
+            or cfg.video_level_classifier_model != "MoeModel"):
+        raise ValueError(
+            "--quantize int8 covers the flagship HierarchicalLstmModel "
+            "+ MoeModel configuration")
+
+    def step(qparams, features_u8, labels, num_frames):
+        nf_student = student_num_frames(num_frames, cfg.every_n,
+                                        cfg.max_num_frames)
+        sub = (features_u8 if host_subsampled
+               else uniform_subsample(features_u8, cfg.every_n))
+        model_input_s = preprocess_batch(cfg, sub, nf_student)
+        predictions = quantized_hierarchical_forward(
+            qparams, model_input_s, nf_student, cfg.num_inputs_L1,
+            cfg.num_classes, cfg.moe_num_mixtures,
+            use_kernel=(cfg.use_pallas_inference
+                        and features_u8.device.type == "cuda"))
+        return _eval_outputs(predictions, labels, top_k)
 
     return step

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from efficientvideoclassification_youtube8m_torch.ops.quantize import int_mm_layout
+
 
 def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     if isinstance(tree, dict):
@@ -51,6 +53,45 @@ def load_jax_params(model: nn.Module, tree: Any) -> nn.Module:
             # in the tree's own dtype; copy_ casts once, to the parameter's
             state[name].copy_(torch.from_numpy(np.array(value)))
     return model
+
+
+_QUANTIZED_CELL = ("wx_q", "wx_scale", "wh_q", "wh_scale", "bias")
+_QUANTIZED_MOE = ("gates_q", "gates_scale", "experts_q", "experts_scale",
+                  "experts_b")
+
+
+def load_jax_quantized_params(tree: Any, device="cpu") -> Dict[str, Any]:
+    """The JAX package's `ops.quantize.quantize_hierarchical_params` tree
+    (numpy leaves) as the port's quantized parameters, the layout that
+    `ops.quantize.quantize_hierarchical_params` returns: ``{"rnn_l1":
+    [cell, ...], "rnn_l2": [...], "classifier": {...}}`` with int8 ``*_q``
+    leaves (in `int_mm_layout`, but for the kernel's row-major ``wh_q``)
+    and float32 scales and biases, on `device`. Values are copied bit for
+    bit. Raises KeyError on missing or unexpected names and
+    TypeError on a leaf of another dtype."""
+
+    def group(node: Any, keys, where: str) -> Dict[str, torch.Tensor]:
+        if set(node) != set(keys):
+            raise KeyError(f"{where}: names {sorted(node)}, expected {sorted(keys)}")
+        out = {}
+        for key in keys:
+            value = np.asarray(node[key])
+            want = np.int8 if key.endswith("_q") else np.float32
+            if value.dtype != want:
+                raise TypeError(f"{where}.{key} is {value.dtype}, not {np.dtype(want)}")
+            out[key] = torch.from_numpy(np.array(value)).to(device)
+            if key != "wh_q" and key.endswith("_q"):
+                out[key] = int_mm_layout(out[key])
+        return out
+
+    if set(tree) != {"rnn_l1", "rnn_l2", "classifier"}:
+        raise KeyError(f"names {sorted(tree)}, expected classifier, rnn_l1, rnn_l2")
+    return {
+        **{level: [group(cell, _QUANTIZED_CELL, f"{level}.{i}")
+                   for i, cell in enumerate(tree[level])]
+           for level in ("rnn_l1", "rnn_l2")},
+        "classifier": group(tree["classifier"], _QUANTIZED_MOE, "classifier"),
+    }
 
 
 def _lists(node: Any) -> Any:

@@ -24,7 +24,8 @@ print(len(sys.argv) - 1)
 def test_port_imports_no_jax():
     modules = [port.__name__] + [
         m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
-    for name in ("ops.kernels.lstm_scan", "ops.kernels.lstm_train", "losses",
+    for name in ("ops.kernels.lstm_scan", "ops.kernels.lstm_train",
+                 "ops.kernels.lstm_scan_int8", "ops.quantize", "losses",
                  "metrics.eval_util", "train.optimizer", "train.state",
                  "train.step"):
         assert f"{port.__name__}.{name}" in modules

@@ -110,7 +110,7 @@ def test_module_from_seeded_init(tree):
 
 
 def test_unsupported_options_raise(tree):
-    for kwargs in ({"quantize": "int8"}, {"mesh": object()},
+    for kwargs in ({"quantize": "int8", "mesh": object()}, {"mesh": object()},
                    {"sequence_parallel": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Predictor(CFG, tree, device="cpu", **kwargs)

@@ -40,7 +40,18 @@ recurrences of every path went through the kernels. Phases:
      distance to the bf16 kernel path, one teacher request, int8 and bf16
      serving videos/s; then one batch of 256 through
      `build_quantized_eval_step` and `build_eval_step` on the kernel
-     paths, their top-k overlap and PERR, and their host packs decoded.
+     paths, their top-k overlap and PERR, and their host packs decoded;
+  9. the five binaries through their `main(argv)`, each with the kernel
+     counts set to 0 just before it and checked just after: (a)
+     scripts/fidelity_check.py's run (10 synthetic videos a split at
+     flagship widths, batch 5, its canonical flags and its bands against
+     the reference's golden log), then validate, convert (the student
+     bit-equal), finetune and eval in bf16 and int8 (epoch metrics within
+     2e-3); (b) cli.train at batch 256 over 512 videos x 2 epochs, its
+     Examples/Second against phase 6's step rate, the checkpoint's size
+     and save/restore seconds, then cli.eval bf16 and int8 over 600
+     videos with the CLI's examples/s. Data and checkpoints live under
+     build/chip_smoke_pipeline/ and are removed at the end.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is {"kernels": [...]}; the last is {"ok": true, "device": {...}}. With no
@@ -49,8 +60,14 @@ CUDA device the script stops before it measures anything.
 
 from __future__ import annotations
 
+import glob
 import json
+import logging
 import math
+import os
+import re
+import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -58,6 +75,12 @@ import time
 import numpy as np
 import torch
 
+from efficientvideoclassification_youtube8m_torch import data as port_data
+from efficientvideoclassification_youtube8m_torch.cli import convert as convert_cli
+from efficientvideoclassification_youtube8m_torch.cli import eval as eval_cli
+from efficientvideoclassification_youtube8m_torch.cli import finetune as finetune_cli
+from efficientvideoclassification_youtube8m_torch.cli import train as train_cli
+from efficientvideoclassification_youtube8m_torch.cli import validate as validate_cli
 from efficientvideoclassification_youtube8m_torch.metrics.eval_util import (
     train_step_metrics,
 )
@@ -71,6 +94,7 @@ from efficientvideoclassification_youtube8m_torch.serving import (
     TrainConfig,
     init_model,
 )
+from efficientvideoclassification_youtube8m_torch.train import checkpoint, msgpack_io
 from efficientvideoclassification_youtube8m_torch.train.optimizer import (
     make_optimizer,
 )
@@ -535,7 +559,7 @@ def phase_distill(smi):
         f"bwd {delta[1]}, student_label_loss {ce:.6g}, global_step {sstate.global_step}")
     if delta != [per_tower, per_tower] or not math.isfinite(ce) or sstate.global_step != 1:
         raise AssertionError("the finetune step did not run through the train kernels")
-    return launches
+    return launches, rate
 
 
 def int8_layer_case(T, B, H, D, gen):
@@ -714,6 +738,363 @@ def phase_int8_serving(smi):
     return launches
 
 
+# ------------------------------------------- phase 9: the five binaries
+#
+# 9a is scripts/fidelity_check.py through the port's binaries: its data
+# (10 synthetic videos a split at flagship widths), its canonical flags
+# (:143-157) and its bands against the reference's golden log (GOLDEN and
+# check_trajectory, :38-41 and :67-110). Two flags are added that change
+# no number: every tick writes the summaries (the device histograms) and
+# every step saves a checkpoint through the async saver.
+FIDELITY_FLAGS = [
+    "--feature_names", "rgb, audio", "--feature_sizes", "1024, 128",
+    "--model", "HierarchicalLstmModel", "--batch_size", "5",
+    "--num_inputs_to_lstm", "20", "--lstm_layers", "2", "--every_n", "10",
+    "--num_epochs", "2", "--num_readers", "2", "--scan_unroll", "1",
+]
+FIDELITY_VIDEOS = 10
+GOLDEN = {
+    2: {"teacher": 1914.09, "l_rep": 1.16, "l_pred": 0.01, "l_ce": 1914.1},
+    4: {"teacher": 1908.12, "l_rep": 1.52, "l_pred": 0.01, "l_ce": 1913.41},
+}
+STEP_RE = re.compile(r"training step (\d+)\|.*Teacher_Loss: ([\d.]+)\| "
+                     r"L_REP: ([\d.]+)\| L_PRED: ([\d.]+)\| L_CE: ([\d.]+)")
+EVAL_RATE_RE = re.compile(r"Average examples processed in one second ([\d.]+)")
+# int8 against bf16 epoch metrics of one checkpoint: tests/test_quantize.py's
+# deploy-gate bar on Hit@1, PERR and GAP.
+TOL_INT8_EPOCH = 2e-3
+EPOCH_KEYS = ("avg_hit_at_one", "avg_perr", "gap")
+# 9b: the flagship at the reference's batch of 256 (every flag at its
+# default): 512 training videos in 4 shards over 2 epochs, 600 eval videos
+# in 4 shards (a padded final batch).
+SCALE_TRAIN, SCALE_EVAL, SHARDS = 512, 600, 4
+COUNTERS = {
+    "lstm_train_fwd": lstm_train.lstm_train_fwd,
+    "lstm_train_bwd": lstm_train.lstm_train_bwd,
+    "lstm_chunk_scan": lstm_scan.lstm_chunk_scan,
+    "lstm_chunk_scan_int8": lstm_scan_int8.lstm_chunk_scan_int8,
+}
+
+
+class LogCapture(logging.Handler):
+    """The matches of `pattern` in the messages of one logger."""
+
+    def __init__(self, logger_name: str, pattern: re.Pattern):
+        super().__init__()
+        self.logger = logging.getLogger(logger_name)
+        self.pattern = pattern
+        self.matches = []
+
+    def emit(self, record):
+        m = self.pattern.search(record.getMessage())
+        if m:
+            self.matches.append(m.groups())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+
+def run_binary(tag: str, main_fn, argv, expected):
+    """`main_fn(argv)` with every kernel count set to 0 just before it and
+    read just after; each count must equal `expected` (0 where not named).
+    Returns (the binary's result, its seconds, the counts)."""
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = main_fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    log(f"[9] {tag}: {seconds:.3f} s; kernel launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    want = {name: expected.get(name, 0) for name in COUNTERS}
+    if counts != want:
+        raise AssertionError(f"{tag}: kernel launches {counts}, expected {want}")
+    return result, seconds, counts
+
+
+def check_trajectory(steps) -> None:
+    """scripts/fidelity_check.py's bands (:67-110) on the logged steps."""
+    s2, s4 = steps.get(2), steps.get(4)
+    if not (s2 and s4):
+        raise AssertionError(f"steps 2 and 4 not logged (got {sorted(steps)})")
+    log(f"[9] step 2: {s2} (golden {GOLDEN[2]}); step 4: {s4} (golden {GOLDEN[4]})")
+    drop = s2["teacher"] - s4["teacher"]
+    checks = [
+        (abs(s2["teacher"] - GOLDEN[2]["teacher"]) < 2.0,
+         f"step-2 Teacher_Loss {s2['teacher']:.2f} within 2.0 of {GOLDEN[2]['teacher']}"),
+        (abs(s2["l_ce"] - GOLDEN[2]["l_ce"]) < 2.0,
+         f"step-2 L_CE {s2['l_ce']:.2f} within 2.0 of {GOLDEN[2]['l_ce']}"),
+        (1.0 < drop < 20.0, f"step-4 teacher CE decrease {drop:.2f} in (1, 20)"),
+        (s4["l_ce"] < s2["l_ce"], f"step-4 L_CE {s4['l_ce']:.2f} < step-2 {s2['l_ce']:.2f}"),
+        (0.0 < s2["l_rep"] < 3.0, f"step-2 L_REP {s2['l_rep']:.2f} in (0, 3)"),
+        (s4["l_rep"] > s2["l_rep"], f"L_REP grows {s2['l_rep']:.2f} -> {s4['l_rep']:.2f}"),
+        (s2["l_pred"] < 0.2 and s4["l_pred"] < 0.2,
+         f"L_PRED near zero ({s2['l_pred']}, {s4['l_pred']})"),
+    ]
+    for ok, msg in checks:
+        log(f"[9]   [{'ok' if ok else 'FAIL'}] {msg}")
+    if not all(ok for ok, _ in checks):
+        raise AssertionError("the fidelity bands of scripts/fidelity_check.py failed")
+
+
+def flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for key, value in tree.items():
+            out.update(flat_leaves(value, f"{prefix}{key}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def check_same_student(trained_path: str, converted_path: str) -> int:
+    """Every student parameter of the converted file bit-equal to the
+    trained file's. Returns the number of tensors compared."""
+    trained = flat_leaves(msgpack_io.load(trained_path)["params_student"])
+    converted = flat_leaves(msgpack_io.load(converted_path)["params_student"])
+    if trained.keys() != converted.keys():
+        raise AssertionError("the converted student has other parameters")
+    for name, value in trained.items():
+        other = converted[name]
+        if other.dtype != value.dtype or not np.array_equal(
+                other.view(np.uint8), value.view(np.uint8)):
+            raise AssertionError(f"converted student {name} is not bit-equal")
+    return len(trained)
+
+
+def read_scalars(logdir: str, tag: str):
+    """{step: value} of the scalar summary `tag` in logdir's events files."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(logdir, "events.out.tfevents.*"))):
+        for record in port_data.TFRecordReader(path):
+            step, value = 0, None
+            for fn, _, v in port_data.iter_fields(record):
+                if fn == 2:  # Event.step
+                    step = v
+                elif fn == 5:  # Event.summary -> Summary.value
+                    for _, _, sv in port_data.iter_fields(bytes(v)):
+                        fields = {f: x for f, _, x in port_data.iter_fields(bytes(sv))}
+                        if bytes(fields.get(1, b"")).decode() == tag and 2 in fields:
+                            value = struct.unpack("<f", bytes(fields[2]))[0]
+            if value is not None:
+                out[step] = value
+    return out
+
+
+def check_epochs(base, quant, epoch_id, what):
+    for name, data in (("bf16", base), ("int8", quant)):
+        if data["epoch_id"] != epoch_id or not np.isfinite(data["avg_loss"]):
+            raise AssertionError(f"{what} {name}: epoch {data['epoch_id']}, "
+                                 f"avg_loss {data['avg_loss']}")
+    diffs = {key: abs(base[key] - quant[key]) for key in EPOCH_KEYS}
+    diffs["mAP"] = abs(float(np.mean(base["aps"])) - float(np.mean(quant["aps"])))
+    log(f"[9] {what} epoch metrics bf16 / int8: " + "; ".join(
+        f"{k} {base[k]:.6g} / {quant[k]:.6g}" for k in EPOCH_KEYS + ("avg_loss",))
+        + f"; mAP {np.mean(base['aps']):.6g} / {np.mean(quant['aps']):.6g}; |diff| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+        + f" (tolerance {TOL_INT8_EPOCH} on {', '.join(EPOCH_KEYS)})")
+    if max(diffs[k] for k in EPOCH_KEYS) > TOL_INT8_EPOCH:
+        raise AssertionError(f"{what}: int8 and bf16 epoch metrics differ: {diffs}")
+
+
+def phase_pipeline_fidelity(root: str):
+    """9a: train -> validate -> convert -> finetune -> eval (bf16, int8)."""
+    data_dir = os.path.join(root, "yt8m")
+    os.makedirs(data_dir)
+    for split, seed in (("train", 0), ("validate", 1)):
+        port_data.write_synthetic_frame_shard(
+            os.path.join(data_dir, f"{split}-0000.tfrecord"),
+            num_videos=FIDELITY_VIDEOS, seed=seed)
+    train_pattern = os.path.join(data_dir, "train*.tfrecord")
+    eval_pattern = os.path.join(data_dir, "validate*.tfrecord")
+    train_dir = os.path.join(root, "model_train") + "/"
+    levels = 4  # wrapper calls per tower forward: 2 levels x 2 layers
+    batches = FIDELITY_VIDEOS // 5  # a split per epoch at batch 5
+    seconds = {}
+
+    with LogCapture("train", STEP_RE) as capture:
+        state, seconds["train"], _ = run_binary(
+            "9a train", train_cli.main, FIDELITY_FLAGS + [
+                "--train_dir", train_dir, "--train_data_pattern", train_pattern,
+                "--start_new_model", "true", "--save_summaries_secs", "0",
+                "--save_model_secs", "0"],
+            {"lstm_train_fwd": 2 * levels * 2 * batches,
+             "lstm_train_bwd": 2 * levels * 2 * batches})
+    steps = {int(m[0]): dict(zip(("teacher", "l_rep", "l_pred", "l_ce"),
+                                 map(float, m[1:]))) for m in capture.matches}
+    check_trajectory(steps)
+    trained = checkpoint.latest_checkpoint(train_dir)
+    want_step = 2 * 2 * batches  # 2 epochs, the step advances 2 a batch
+    if state.global_step != want_step or not trained.endswith(
+            f"model.ckpt-{want_step}.msgpack"):
+        raise AssertionError(f"train ended at {state.global_step}, {trained}")
+    # written for each lagged step inside the loop: all but the last
+    summaries = read_scalars(train_dir, "label_loss")
+    if sorted(summaries) != list(range(2, want_step, 2)):
+        raise AssertionError(f"summaries written at steps {sorted(summaries)}")
+    del state
+
+    epoch, seconds["validate"], _ = run_binary(
+        "9a validate", validate_cli.main, FIDELITY_FLAGS + [
+            "--train_dir", train_dir, "--eval_data_pattern", eval_pattern,
+            "--run_once", "true"],
+        {"lstm_chunk_scan": 2 * levels * batches})
+    if epoch["epoch_id"] != want_step or not np.isfinite(epoch["avg_loss"]):
+        raise AssertionError(f"validate epoch {epoch}")
+
+    converted, seconds["convert"], _ = run_binary(
+        "9a convert", convert_cli.main, FIDELITY_FLAGS + ["--train_dir", train_dir], {})
+    finetune_dir = train_dir.replace("train", "") + "finetune/"
+    if converted != os.path.join(finetune_dir, "model.ckpt-0.msgpack"):
+        raise AssertionError(f"convert wrote {converted}")
+    n = check_same_student(trained, converted)
+    log(f"[9] converted student bit-equal to the trained one ({n} tensors); "
+        f"files: distill {os.path.getsize(trained)} B, student "
+        f"{os.path.getsize(converted)} B")
+
+    _, seconds["finetune"], _ = run_binary(
+        "9a finetune", finetune_cli.main, FIDELITY_FLAGS + [
+            "--train_dir", finetune_dir, "--train_data_pattern", train_pattern,
+            "--num_epochs", "1", "--save_summaries_secs", "0"],
+        {"lstm_train_fwd": levels * batches, "lstm_train_bwd": levels * batches})
+    tuned = checkpoint.latest_checkpoint(finetune_dir)
+    if not tuned.endswith(f"model.ckpt-{batches}.msgpack"):
+        raise AssertionError(f"finetune wrote {tuned}")
+
+    runs = {}
+    for quant, kernel in (("none", "lstm_chunk_scan"), ("int8", "lstm_chunk_scan_int8")):
+        runs[quant], seconds[f"eval {quant}"], _ = run_binary(
+            f"9a eval --quantize {quant}", eval_cli.main, FIDELITY_FLAGS + [
+                "--train_dir", finetune_dir, "--eval_data_pattern", eval_pattern,
+                "--run_once", "true", "--quantize", quant],
+            {kernel: levels * batches})
+    check_epochs(runs["none"], runs["int8"], batches, "9a eval")
+    log("[9] 9a stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+
+
+def phase_pipeline_scale(root: str, smi: str, step_rate: float):
+    """9b: cli.train at batch 256, checkpoint I/O of its state, cli.eval
+    bf16 and int8 of its student."""
+    data_dir = os.path.join(root, "scale")
+    os.makedirs(data_dir)
+    for split, videos, seed in (("train", SCALE_TRAIN, 10), ("validate", SCALE_EVAL, 20)):
+        for s in range(SHARDS):
+            port_data.write_synthetic_frame_shard(
+                os.path.join(data_dir, f"{split}-{s:04d}.tfrecord"),
+                num_videos=videos // SHARDS, seed=seed + s)
+    cfg = TrainConfig()
+    B, levels = cfg.batch_size, 2 * cfg.lstm_layers
+    train_steps = 2 * SCALE_TRAIN // B
+    train_dir = os.path.join(root, "scale_train") + "/"
+    seconds = {}
+    state, seconds["train"], _ = run_binary(
+        "9b train", train_cli.main, [
+            "--train_dir", train_dir, "--num_epochs", "2", "--start_new_model", "true",
+            "--train_data_pattern", os.path.join(data_dir, "train*.tfrecord")],
+        {"lstm_train_fwd": 2 * levels * train_steps,
+         "lstm_train_bwd": 2 * levels * train_steps})
+    if state.global_step != 2 * train_steps:
+        raise AssertionError(f"train ended at step {state.global_step}")
+    rates = read_scalars(train_dir, "global_step/Examples/Second")
+    if sorted(rates) != list(range(2, 2 * train_steps + 1, 2)):
+        raise AssertionError(f"Examples/Second logged at steps {sorted(rates)}")
+    # each value is B over the host time from one step's launch to the
+    # next; over the steps after the first, videos over summed time
+    later = [rates[s] for s in sorted(rates)[1:]]
+    steady = len(later) * B / sum(B / r for r in later)
+    log(f"[9] 9b cli.train batch {B}, {train_steps} steps: Examples/Second by step "
+        + ", ".join(f"{s}: {v:.1f}" for s, v in sorted(rates.items()))
+        + f"; after the first step {steady:.1f} videos/s (videos over summed "
+        f"time) against phase 6's step-level {step_rate:.1f} "
+        f"({steady / step_rate:.3f}) ({smi})")
+
+    trained = checkpoint.latest_checkpoint(train_dir)
+    io_dir = os.path.join(root, "io")
+    t0 = time.perf_counter()
+    path = checkpoint.save_checkpoint(io_dir, state, state.global_step)
+    save_s = time.perf_counter() - t0
+    saver = checkpoint.AsyncCheckpointSaver()
+    times = []
+    for step in (1, 2):
+        t0 = time.perf_counter()
+        saver.save(os.path.join(io_dir, "async"), state, step)
+        returned = time.perf_counter() - t0
+        saver.wait()
+        times.append((returned, time.perf_counter() - t0))
+    opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
+    template = init_distill_state(cfg, opt, torch.Generator().manual_seed(1), device="cuda")
+    t0 = time.perf_counter()
+    checkpoint.restore_checkpoint(path, template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    for tower in ("teacher", "student"):
+        want = getattr(state, tower).state_dict()
+        for name, value in getattr(template, tower).state_dict().items():
+            if not torch.equal(value, want[name]):
+                raise AssertionError(f"restored {tower}.{name} differs")
+    size = os.path.getsize(path)
+    log(f"[9] 9b checkpoint of the distill state: {size / 2**30:.3f} GiB "
+        f"({size} B, same as the CLI's: {size == os.path.getsize(trained)}); "
+        f"save {save_s:.3f} s ({size / save_s / 2**30:.2f} GiB/s); async save "
+        + ", ".join(f"main thread {a:.3f} s, written after {b:.3f} s" for a, b in times)
+        + f"; restore into a card state {restore_s:.3f} s "
+        f"({size / restore_s / 2**30:.2f} GiB/s), every tensor bit-equal ({smi})")
+    del state, template, saver
+
+    eval_batches = math.ceil(SCALE_EVAL / B)
+    runs, rates = {}, {"none": [], "int8": []}
+    kernels = {"none": "lstm_chunk_scan", "int8": "lstm_chunk_scan_int8"}
+    for turn, quant in enumerate(("none", "int8", "int8", "none")):  # in turns
+        with LogCapture("eval", EVAL_RATE_RE) as capture:
+            runs.setdefault(quant, []).append(run_binary(
+                f"9b eval --quantize {quant}", eval_cli.main, [
+                    "--train_dir", train_dir, "--run_once", "true", "--quantize", quant,
+                    "--eval_data_pattern", os.path.join(data_dir, "validate*.tfrecord")],
+                {kernels[quant]: levels * eval_batches}))
+        (rate,) = [float(m[0]) for m in capture.matches]
+        rates[quant].append(rate)
+        seconds[f"eval {quant} ({turn + 1})"] = runs[quant][-1][1]
+    check_epochs(runs["none"][0][0], runs["int8"][0][0], 2 * train_steps, "9b eval")
+    log(f"[9] 9b cli.eval batch {B}, {SCALE_EVAL} videos ({eval_batches} batches, "
+        "the last padded), in turns bf16, int8, int8, bf16: the CLI's examples/s "
+        f"bf16 {rates['none'][0]:.1f} and {rates['none'][1]:.1f}, int8 "
+        f"{rates['int8'][0]:.1f} and {rates['int8'][1]:.1f} ({smi})")
+    log("[9] 9b stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+
+    serve_cfg = TrainConfig(compute_dtype="bfloat16")
+    feats, nf = next(requests((64,), serve_cfg, seed=4))
+    for tower in ("student", "teacher"):
+        predictor, _, _ = run_binary(
+            f"9b Predictor.from_checkpoint(tower={tower!r})",
+            lambda d: Predictor.from_checkpoint(d, serve_cfg, tower=tower,
+                                                serve_batch=SERVE_BATCH, device="cuda"),
+            train_dir, {})
+        lstm_scan.lstm_chunk_scan.launches = 0
+        probs = predictor.predict(feats, nf)
+        torch.cuda.synchronize()
+        check_predictions(probs, len(nf), serve_cfg.num_classes, f"{tower} from checkpoint")
+        if lstm_scan.lstm_chunk_scan.launches != levels:
+            raise AssertionError(f"the {tower} from the checkpoint made "
+                                 f"{lstm_scan.lstm_chunk_scan.launches} launches")
+        log(f"[9] {tower} from {os.path.basename(trained)} served 64 videos: "
+            f"{levels} kernel launches, predictions finite in [0, 1]")
+
+
+def phase_pipeline(smi: str, step_rate: float) -> None:
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        phase_pipeline_fidelity(root)
+        phase_pipeline_scale(root, smi, step_rate)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -723,11 +1104,12 @@ def main() -> None:
     worst, times = phase_kernel()
     launches = phase_serving(smi)
     train_worst, train_times = phase_train_kernels()
-    train_launches = phase_distill(smi)
+    train_launches, step_rate = phase_distill(smi)
     int8_worst, int8_times = phase_int8_kernel()
     int8_launches = phase_int8_serving(smi)
-    if any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules):
-        raise AssertionError("the port imported jax")
+    phase_pipeline(smi, step_rate)
+    if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack") for m in sys.modules):
+        raise AssertionError("the port imported jax, flax or msgpack")
     ms, plain_ms = times["student_L1"]
     train_ms = train_times["student_L1"]
     int8_ms, int8_plain_ms = int8_times["student_L1"]

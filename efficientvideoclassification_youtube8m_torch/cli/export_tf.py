@@ -1,0 +1,10 @@
+"""cli.export_tf (export to a TF-V2 bundle): not ported yet, ROADMAP Queue 1 item 14."""
+
+import sys
+
+from efficientvideoclassification_youtube8m_torch.cli import not_ported
+
+main = not_ported("export_tf", "export to a TF-V2 bundle")
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

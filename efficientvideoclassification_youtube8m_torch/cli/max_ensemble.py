@@ -1,0 +1,10 @@
+"""cli.max_ensemble (max-ensembling of prediction files): not ported yet, ROADMAP Queue 1 item 14."""
+
+import sys
+
+from efficientvideoclassification_youtube8m_torch.cli import not_ported
+
+main = not_ported("max_ensemble", "max-ensembling of prediction files")
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -40,7 +40,15 @@ from efficientvideoclassification_youtube8m_torch.train.step import (
     forward_teacher,
     preprocess_batch,
 )
-from efficientvideoclassification_youtube8m_torch.train.state import init_model
+from efficientvideoclassification_youtube8m_torch.train.checkpoint import (
+    latest_checkpoint,
+    restore_subtree,
+)
+from efficientvideoclassification_youtube8m_torch.train.state import (
+    DistillState,
+    StudentState,
+    init_model,
+)
 from efficientvideoclassification_youtube8m_torch.weights import load_jax_params
 from efficientvideoclassification_youtube8m_tpu.utils.config import TrainConfig
 
@@ -102,11 +110,34 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(cls, train_dir: str, cfg: Optional[TrainConfig] = None,
-                        tower: str = "student", **kwargs) -> "Predictor":
-        raise NotImplementedError(
-            "loading the JAX package's checkpoints comes with the checkpoint "
-            "bridge (ROADMAP Queue 1 item 8); build the Predictor from a "
-            "parameter tree or module instead")
+                        tower: str = "student", serve_batch: int = 256,
+                        device="cuda", **kwargs) -> "Predictor":
+        """Serve the latest checkpoint of a finetune or distillation
+        train_dir (this package's or the JAX package's). Finetune
+        checkpoints carry only the student: asking one for the teacher
+        raises ValueError."""
+        cfg = cfg or TrainConfig()
+        if tower not in ("student", "teacher"):
+            raise ValueError(f"tower must be 'student' or 'teacher', got {tower!r}")
+        ckpt = latest_checkpoint(train_dir)
+        if ckpt is None:
+            raise IOError(f"no checkpoint in {train_dir}")
+        model = init_model(cfg, device=device)
+        if tower == "teacher":
+            template = DistillState(teacher=model, student=model, opt_teacher={},
+                                    opt_student={}, global_step=0,
+                                    dropout_keep_prob=cfg.dropout)
+            try:
+                restore_subtree(ckpt, template, ["params_teacher"])
+            except (KeyError, ValueError) as e:
+                raise ValueError(
+                    f"{ckpt} is a student-only checkpoint; no teacher tower") from e
+        else:
+            restore_subtree(ckpt, StudentState(student=model, opt_student={},
+                                               global_step=0,
+                                               dropout_keep_prob=cfg.dropout),
+                            ["params_student"])
+        return cls(cfg, model, tower, serve_batch, device=device, **kwargs)
 
     @torch.inference_mode()
     def _fwd(self, features_u8: np.ndarray, num_frames: np.ndarray

@@ -1,5 +1,5 @@
 """The PyTorch port must run where JAX is not installed: importing every
-module of the port loads no JAX. tests/conftest.py imports jax into this
+module of the port loads no JAX, flax or msgpack. tests/conftest.py imports jax into this
 process, so the check runs in a fresh interpreter."""
 
 import pkgutil
@@ -15,7 +15,8 @@ CHECK = """
 import importlib, sys
 for name in sys.argv[1:]:
     importlib.import_module(name)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack"))
 assert not loaded, loaded
 print(len(sys.argv) - 1)
 """
@@ -27,7 +28,10 @@ def test_port_imports_no_jax():
     for name in ("ops.kernels.lstm_scan", "ops.kernels.lstm_train",
                  "ops.kernels.lstm_scan_int8", "ops.quantize", "losses",
                  "metrics.eval_util", "train.optimizer", "train.state",
-                 "train.step"):
+                 "train.step", "train.msgpack_io", "train.checkpoint",
+                 "utils.summary", "parallel.distributed", "cli.flags",
+                 "cli.loop", "cli.train", "cli.validate", "cli.convert",
+                 "cli.finetune", "cli.eval", "cli.infer", "serving"):
         assert f"{port.__name__}.{name}" in modules
     out = subprocess.run([sys.executable, "-c", CHECK, *modules], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -109,13 +109,14 @@ def test_module_from_seeded_init(tree):
             == jax.tree.map(np.shape, tree))
 
 
-def test_unsupported_options_raise(tree):
+def test_unsupported_options_raise(tree, tmp_path):
     for kwargs in ({"quantize": "int8", "mesh": object()}, {"mesh": object()},
                    {"sequence_parallel": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Predictor(CFG, tree, device="cpu", **kwargs)
+    (tmp_path / "model.ckpt-5").mkdir()  # an orbax checkpoint directory
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor.from_checkpoint("./train_dir", CFG)
+        Predictor.from_checkpoint(str(tmp_path), CFG, device="cpu")
     with pytest.raises(ValueError):
         Predictor(CFG, tree, tower="both", device="cpu")
     with pytest.raises(ValueError):

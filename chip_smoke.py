@@ -9,12 +9,20 @@ PyTorch version at the shapes its path gives it, serves the flagship
 student through `Predictor`, trains the flagship by distillation through
 `build_distill_train_step`, serves it int8 through
 `Predictor(quantize="int8")`, runs the eval steps, and checks that the
-recurrences of every path went through the kernels. Phases:
+recurrences of every path went through the kernels. A kernel's and a
+plain version's time in phases 2, 5 and 7 is that of an eager call
+(`cuda_ms`, CUDA events around repeated calls), as in earlier runs; the
+kernel's device time alone, the replay of a CUDA graph of one call
+(`graph_ms`), stands beside it. Phases:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA
-     versions, the kernels' build time and ptxas report;
+     versions, the kernels' build time and ptxas report, and the SASS of
+     the bf16 step kernels (`cuobjdump -sass`): each runs wgmma (HGMMA)
+     fed by TMA (UTMALDG) and no legacy mma.sync (HMMA);
   2. `lstm_chunk_scan` against `lstm_chunk_scan_reference` in bf16 at the
-     student and teacher layer shapes and a ragged one, with times;
+     student and teacher layer shapes and a ragged one, with times, each
+     beside its bound (ops/kernels/bounds.py), its share of the bound, its
+     TFLOP/s and the earlier design's time from PERF.md;
   3. the student tower at the flagship config (TrainConfig defaults in
      bf16: D=1152, 2x1024 LSTMs, 4716 classes, MoE 2, every_n=10, 5
      chunks, random weights from a seed) serving requests of 256, 100
@@ -24,7 +32,8 @@ recurrences of every path went through the kernels. Phases:
   5. `lstm_train_fwd` and `lstm_train_bwd` against their plain versions
      in bf16 at the four flagship train layer shapes (batch 256) and a
      ragged one, and `LstmLayerTrain` against plain autograd of
-     `lstm_train_fwd_reference`, with times;
+     `lstm_train_fwd_reference`, with times, bounds, shares, TFLOP/s and
+     the earlier design's times beside them;
   6. distillation training at the flagship config: the loss and the
      gradients of `distill_loss_and_grads` on the kernel path against
      the plain-scan path from the same weights, three steps of
@@ -33,7 +42,7 @@ recurrences of every path went through the kernels. Phases:
      `build_finetune_step` step;
   7. `lstm_chunk_scan_int8` against `lstm_chunk_scan_int8_reference` at
      the layer shapes of phases 2 and 5, on inputs made as the int8 path
-     makes them, with times;
+     makes them, with times and bounds;
   8. the flagship student through `Predictor(quantize="int8")` at
      serve_batch 256 on requests of 256, 100 and 513 videos: the int8
      launch count, the agreement with the plain int8 scan and the
@@ -51,7 +60,14 @@ recurrences of every path went through the kernels. Phases:
      Examples/Second against phase 6's step rate, the checkpoint's size
      and save/restore seconds, then cli.eval bf16 and int8 over 600
      videos with the CLI's examples/s. Data and checkpoints live under
-     build/chip_smoke_pipeline/ and are removed at the end.
+     build/chip_smoke_pipeline/ and are removed at the end;
+ 10. the library yardstick at the four flagship layer shapes on
+     full-length sequences: cuDNN's LSTM layer (`torch.nn.LSTM` with the
+     layer's weights in cuDNN's gate order and the forget bias folded in;
+     fp16, since this PyTorch gives cuDNN no bf16 RNN) in inference,
+     training forward and training backward, beside the port's layer (the
+     `x @ Wx` GEMM + `lstm_chunk_scan`; `LstmLayerTrain` forward and
+     backward). The port never calls cuDNN.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is {"kernels": [...]}; the last is {"ok": true, "device": {...}}. With no
@@ -85,6 +101,7 @@ from efficientvideoclassification_youtube8m_torch.metrics.eval_util import (
     train_step_metrics,
 )
 from efficientvideoclassification_youtube8m_torch.ops.kernels import _build
+from efficientvideoclassification_youtube8m_torch.ops.kernels import bounds
 from efficientvideoclassification_youtube8m_torch.ops import quantize
 from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_scan
 from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_scan_int8
@@ -165,14 +182,51 @@ LAYER_SHAPES = [
     ("single_step", 1, 9, 16, 24),  # the train backward's prologue alone
 ]
 SERVE_BATCH = 256
+FLAGSHIP_SHAPES = [s for s in LAYER_SHAPES if s[0].startswith(("student", "teacher"))]
+# Times of the earlier designs at the flagship layer shapes, from
+# PERF.md's kernel table (eager calls timed by CUDA events on an NVIDIA
+# H100 80GB HBM3 at 700 W): the WMMA step kernels of the bf16 serving and
+# train paths, and the int8 kernel. Printed beside this run's times for
+# the reader; one call cannot run both designs.
+EARLIER_MS = {
+    "lstm_chunk_scan": {"student_L1": 0.6686},
+    "lstm_train_fwd": {"student_L1": 0.7333, "student_L2": 0.1737,
+                       "teacher_L1": 6.2563, "teacher_L2": 0.6449},
+    "lstm_train_bwd": {"student_L1": 1.3615, "student_L2": 0.3591,
+                       "teacher_L1": 13.0186, "teacher_L2": 1.5155},
+    "lstm_chunk_scan_int8": {"student_L1": 0.8408, "student_L2": 0.2085,
+                             "teacher_L1": 7.4085, "teacher_L2": 0.8660},
+}
+# The bf16 step kernels, by library: each must run wgmma fed by TMA.
+STEP_KERNELS = {"lstm_chunk_scan": ("lstm_step_kernel",),
+                "lstm_train": ("lstm_step_kernel", "lstm_bwd_step_kernel")}
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
 
 
+def against_bound(kernel: str, name: str, T: int, B: int, H: int, ms: float,
+                  replay_ms: float) -> str:
+    """The eager call's `ms` beside the kernel's bound at (T, B, H), its
+    share of the bound, its operation rate and the earlier design's eager
+    time where PERF.md has one; then the share of the graph replay's
+    `replay_ms`."""
+    b = bounds.achieved(kernel, T, B, H, ms)
+    unit = "TOP/s" if kernel.endswith("int8") else "TFLOP/s"
+    text = (f"{kernel} {ms:.4f} ms, bound {b['ms']:.4f} ms ({b['bound_by']}), "
+            f"{b['share']:.3f} of it, {b['rate']:.1f} {unit}")
+    earlier = EARLIER_MS[kernel]
+    if name in earlier:
+        text += f"; earlier {earlier[name]:.4f} ms ({earlier[name] / ms:.2f}x)"
+    return text + f"; graph replay {replay_ms:.4f} ms, {b['ms'] / replay_ms:.3f} of the bound"
+
+
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of `fn` over `iters` runs, after a warm-up."""
+    """Mean time of `fn` over `iters` runs, after a warm-up, by CUDA events
+    around the runs: device time where the card is the limit, the host's
+    time per call where the host is."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -183,6 +237,20 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of one call of `fn`: the call is captured once in a
+    CUDA graph and the graph replayed `iters` times between CUDA events,
+    so the host's own time per call (Python, the wrapper's checks and
+    allocations) stays out. At the B=256 layers an eager call's time is
+    mostly the host's. Reported beside `cuda_ms`, never in its place."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    return cuda_ms(graph.replay, iters)
 
 
 def phase_card() -> str:
@@ -204,6 +272,15 @@ def phase_card() -> str:
         for line in _build.build_log(name).splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[1] ptxas {name}: {line.strip()}")
+    for lib, kernels in STEP_KERNELS.items():
+        counts = _build.sass_counts(lib, SASS_OPS)
+        for kernel in kernels:
+            found = {fn: c for fn, c in counts.items() if kernel in fn}
+            for fn, c in found.items():
+                log(f"[1] sass {lib} {fn}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+            if not found or not all(c["HGMMA"] and c["UTMALDG"] and not c["HMMA"]
+                                    for c in found.values()):
+                raise AssertionError(f"{lib}: {kernel} is not a TMA-fed wgmma kernel")
     return smi
 
 
@@ -244,12 +321,16 @@ def phase_kernel():
         }
         iters = 20 if B >= 256 else 5
         ms = cuda_ms(lambda: lstm_scan.lstm_chunk_scan(*args), iters)
+        replay_ms = graph_ms(lambda: lstm_scan.lstm_chunk_scan(*args), iters)
         plain_ms = cuda_ms(lambda: lstm_scan.lstm_chunk_scan_reference(*args), iters)
-        times[name] = (ms, plain_ms)
+        times[name] = (ms, replay_ms, plain_ms)
         log(f"[2] {name} T={T} B={B} H={H}: max|diff| outs {err['outs']:.3g} "
             f"c_fin {err['c_fin']:.3g} h_fin {err['h_fin']:.3g}; "
             f"zeros past seq {zeros_past_seq}, zero state at seq 0 {zero_state}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms (graph replay {replay_ms:.4f}), plain {plain_ms:.4f} ms")
+        if (name, T, B, H, D) in FLAGSHIP_SHAPES:
+            log(f"[2] {name}: " + against_bound("lstm_chunk_scan", name, T, B, H, ms,
+                                                replay_ms))
         if not (zeros_past_seq and zero_state):
             raise AssertionError(f"{name}: masking is wrong")
         if not all(map(math.isfinite, err.values())):
@@ -416,8 +497,10 @@ def phase_train_kernels():
         bwd_args = (w_h, gates, cs, *cot, seq)
         ms = {
             "fwd": cuda_ms(lambda: lstm_train.lstm_train_fwd(*args), iters),
+            "fwd_graph": graph_ms(lambda: lstm_train.lstm_train_fwd(*args), iters),
             "fwd_plain": cuda_ms(lambda: lstm_train.lstm_train_fwd_reference(*args), iters),
             "bwd": cuda_ms(lambda: lstm_train.lstm_train_bwd(*bwd_args), iters),
+            "bwd_graph": graph_ms(lambda: lstm_train.lstm_train_bwd(*bwd_args), iters),
             "bwd_plain": cuda_ms(lambda: lstm_train.lstm_train_bwd_reference(*bwd_args), iters),
         }
         times[name] = ms
@@ -426,8 +509,14 @@ def phase_train_kernels():
             + f"; zeros past seq {zeros_past_seq}; bwd dgates max|diff| {dg_abs:.3g} "
             f"({dg_rel:.3g} of max); LstmLayerTrain vs plain autograd, max|diff| "
             "of max: " + " ".join(f"{k} {v:.3g}" for k, v in grad_err.items()))
-        log(f"[5] {name}: fwd kernel {ms['fwd']:.4f} ms, plain {ms['fwd_plain']:.4f} ms; "
-            f"bwd kernel {ms['bwd']:.4f} ms, plain {ms['bwd_plain']:.4f} ms")
+        log(f"[5] {name}: fwd kernel {ms['fwd']:.4f} ms (graph replay "
+            f"{ms['fwd_graph']:.4f}), plain {ms['fwd_plain']:.4f} ms; bwd kernel "
+            f"{ms['bwd']:.4f} ms (graph replay {ms['bwd_graph']:.4f}), plain "
+            f"{ms['bwd_plain']:.4f} ms")
+        if (name, T, B, H, D) in FLAGSHIP_SHAPES:
+            for kernel, key in (("lstm_train_fwd", "fwd"), ("lstm_train_bwd", "bwd")):
+                log(f"[5] {name}: " + against_bound(kernel, name, T, B, H, ms[key],
+                                                    ms[key + "_graph"]))
         checks = [*fwd_err.values(), dg_abs, dg_rel, *grad_err.values()]
         if not all(map(math.isfinite, checks)):
             raise AssertionError(f"{name}: non-finite difference")
@@ -470,6 +559,46 @@ def timed_step(step, state, batch):
     state, metrics = step(state, *batch)
     torch.cuda.synchronize()
     return state, metrics, time.perf_counter() - t0
+
+
+# Kinds of device work in a distill step, by kernel name; the first that
+# matches wins, the rest is "other elementwise".
+STEP_KINDS = (
+    ("train backward kernels", ("lstm_bwd",)),
+    ("train forward kernel", ("lstm_step_kernel",)),
+    ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "splitK")),
+    ("copies and casts", ("copy", "Memcpy", "Memset")),
+    ("reductions", ("reduce",)),
+)
+
+
+def profile_distill_step(step, state, batch, smi) -> None:
+    """One distill step under torch.profiler: wall time, device time and
+    busy share, device time by kind (STEP_KINDS) and the largest kernels.
+    The step advances `state` like any other."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, *batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {evt.key: evt.self_device_time_total / 1e3 for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA
+               and evt.self_device_time_total > 0}
+    kinds = dict.fromkeys([kind for kind, _ in STEP_KINDS] + ["other elementwise"], 0.0)
+    for name, ms in kernels.items():
+        kind = next((k for k, keys in STEP_KINDS if any(s in name for s in keys)),
+                    "other elementwise")
+        kinds[kind] += ms
+    device_ms = sum(kernels.values())
+    log(f"[6] distill step under torch.profiler: wall {wall_ms:.1f} ms, device "
+        f"{device_ms:.1f} ms (busy {device_ms / wall_ms:.3f}); by kind: " + "; ".join(
+            f"{k} {v:.1f} ms ({v / max(device_ms, 1e-9):.3f})" for k, v in kinds.items())
+        + f" ({smi})")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[6]   {ms:8.3f} ms  {name[:110]}")
 
 
 def phase_distill(smi):
@@ -536,6 +665,7 @@ def phase_distill(smi):
     if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in host.values()):
         raise AssertionError(f"teacher metrics out of [0, 1]: {host}")
     rate = B / float(np.median(seconds[1:]))
+    profile_distill_step(step, state, batch, smi)
 
     plain_step = build_distill_train_step(cfg, opt, kernel_train_mode="off")
     before = train_counts()
@@ -603,13 +733,17 @@ def phase_int8_kernel():
         }
         iters = 20 if B >= 256 else 5
         ms = cuda_ms(lambda: lstm_scan_int8.lstm_chunk_scan_int8(*args), iters)
+        replay_ms = graph_ms(lambda: lstm_scan_int8.lstm_chunk_scan_int8(*args), iters)
         plain_ms = cuda_ms(lambda: lstm_scan_int8.lstm_chunk_scan_int8_reference(*args),
                            iters)
-        times[name] = (ms, plain_ms)
+        times[name] = (ms, replay_ms, plain_ms)
         log(f"[7] {name} T={T} B={B} H={H}: max|diff| outs {err['outs']:.3g} "
             f"c_fin {err['c_fin']:.3g} h_fin {err['h_fin']:.3g}; "
             f"zeros past seq {zeros_past_seq}, zero state at seq 0 {zero_state}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms (graph replay {replay_ms:.4f}), plain {plain_ms:.4f} ms")
+        if (name, T, B, H, D) in FLAGSHIP_SHAPES:
+            log(f"[7] {name}: " + against_bound("lstm_chunk_scan_int8", name, T, B, H, ms,
+                                                replay_ms))
         if not (zeros_past_seq and zero_state):
             raise AssertionError(f"{name}: int8 masking is wrong")
         if not all(map(math.isfinite, err.values())):
@@ -1095,6 +1229,109 @@ def phase_pipeline(smi: str, step_rate: float) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------- phase 10: the library yardstick
+#
+# cuDNN's LSTM layer computes what one of the port's layers computes: the
+# x @ Wx product and the recurrence, full length. PyTorch sends an RNN to
+# cuDNN only in f16, f32 or f64 (bf16 takes its native loop of GEMMs), so
+# the yardstick runs in f16, at the tensor cores' bf16 rate. Agreement of
+# cuDNN's f16 outputs with the port's bf16 ones, over the largest |out|:
+# the two round h to 11 and 8 significant bits every step (5e-3 and less
+# expected), where a wrong gate order gives 0.2 and more.
+TOL_CUDNN_REL = 0.1
+
+
+def cudnn_layer(kernel, bias, D, H, forget_bias=1.0):
+    """torch.nn.LSTM(D, H) in f16 holding the TF1 layer (kernel [D+H, 4H],
+    gates i, j, f, o; forget_bias inside the f sigmoid): cuDNN's gate
+    order is i, f, g, o and its biases sum, so the columns are permuted
+    and the forget bias is folded into b_ih."""
+    i, j, f, o = (torch.arange(g * H, (g + 1) * H, device=kernel.device) for g in range(4))
+    perm = torch.cat([i, f, j, o])
+    b = bias.clone()
+    b[2 * H:3 * H] += forget_bias
+    lstm = torch.nn.LSTM(D, H).to(device="cuda", dtype=torch.float16)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(kernel[:D, perm].t())
+        lstm.weight_hh_l0.copy_(kernel[D:, perm].t())
+        lstm.bias_ih_l0.copy_(b[perm])
+        lstm.bias_hh_l0.zero_()
+    lstm.flatten_parameters()
+    return lstm
+
+
+def phase_library(smi):
+    """cuDNN's layer (inference forward, training forward, backward) beside
+    the port's (x @ Wx + lstm_chunk_scan; LstmLayerTrain forward, backward)
+    at the flagship layer shapes, every sequence full length. Returns
+    {name: {what: ms}}."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    library = {}
+    for name, T, B, H, D in FLAGSHIP_SHAPES:
+        xs, kernel, bias, _, _ = train_layer_case(T, B, H, D, gen)
+        seq = torch.full((B,), T, dtype=torch.int32, device="cuda")
+        x16 = xs.transpose(0, 1).contiguous().half().requires_grad_(True)
+        lstm = cudnn_layer(kernel, bias, D, H)
+        if not torch.backends.cudnn.is_acceptable(x16):
+            raise AssertionError("cuDNN does not take the f16 input")
+        wx, wh = kernel[:D].bfloat16(), kernel[D:].bfloat16()
+        x_bf = xs.transpose(0, 1).bfloat16().contiguous()
+
+        def port_infer():
+            with torch.no_grad():
+                return lstm_scan.lstm_chunk_scan(torch.matmul(x_bf, wx), wh, bias, seq)
+
+        def cudnn_infer():
+            with torch.no_grad():
+                return lstm(x16)
+
+        k, b, x = (t.clone().requires_grad_(True) for t in (kernel, bias, xs))
+        port_out = lstm_train.LstmLayerTrain.apply(k, b, x, seq, 1.0)
+        port_cot = [torch.randn_like(t, dtype=torch.float32).to(t.dtype) for t in port_out]
+        port_wrt = (k, b, x)
+        c_out, (c_h, c_c) = lstm(x16)
+        c_cot = [port_cot[0].transpose(0, 1).half(), port_cot[2][None].half(),
+                 port_cot[1][None].half()]
+        c_wrt = (x16, *lstm.parameters())
+
+        outs, _, _ = port_infer()
+        c_ref, _ = cudnn_infer()
+        rel = rel_err(c_ref, outs)
+        iters = 10 if B >= 1024 else 20
+        timed = {
+            "cudnn_infer": cudnn_infer,
+            "port_infer": port_infer,
+            "cudnn_train_fwd": lambda: lstm(x16),
+            "port_train_fwd": lambda: lstm_train.LstmLayerTrain.apply(k, b, x, seq, 1.0),
+            "cudnn_bwd": lambda: torch.autograd.grad(
+                [c_out, c_h, c_c], c_wrt, c_cot, retain_graph=True),
+            "port_bwd": lambda: torch.autograd.grad(
+                port_out, port_wrt, port_cot, retain_graph=True),
+        }
+        # the median of three runs in turns: a single run of cuDNN's
+        # backward spread 2.5x between calls
+        runs = {key: [] for key in timed}
+        for _ in range(3):
+            for key, fn in timed.items():
+                runs[key].append(cuda_ms(fn, iters))
+        ms = {key: float(np.median(v)) for key, v in runs.items()}
+        library[name] = ms
+        log(f"[10] {name} T={T} B={B} H={H} D={D}, full length: cuDNN f16 layer "
+            f"inference {ms['cudnn_infer']:.4f} ms, training forward "
+            f"{ms['cudnn_train_fwd']:.4f} ms, backward {ms['cudnn_bwd']:.4f} ms; the "
+            f"port's layer {ms['port_infer']:.4f}, {ms['port_train_fwd']:.4f}, "
+            f"{ms['port_bwd']:.4f} ms (cuDNN / port "
+            f"{ms['cudnn_infer'] / ms['port_infer']:.2f}, "
+            f"{ms['cudnn_train_fwd'] / ms['port_train_fwd']:.2f}, "
+            f"{ms['cudnn_bwd'] / ms['port_bwd']:.2f}); cuDNN outs vs the port's, "
+            f"max|diff| of max {rel:.3g} ({smi})")
+        if not rel <= TOL_CUDNN_REL:
+            raise AssertionError(f"{name}: cuDNN's layer computes another function ({rel})")
+        del xs, kernel, x16, lstm, k, b, x, port_out, c_out, c_h, c_c
+    log("[10] lstm_chunk_scan_int8: no PyTorch call computes it on CUDA")
+    return library
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -1108,30 +1345,39 @@ def main() -> None:
     int8_worst, int8_times = phase_int8_kernel()
     int8_launches = phase_int8_serving(smi)
     phase_pipeline(smi, step_rate)
+    library = phase_library(smi)["student_L1"]
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack") for m in sys.modules):
         raise AssertionError("the port imported jax, flax or msgpack")
-    ms, plain_ms = times["student_L1"]
+    # The line's times are at student_L1 (T=6, B=1280, H=1024), the
+    # student's first layer at batch 256. "ms" and "plain_ms" are eager
+    # calls, "graph_ms" the kernel's graph replay. library_ms is cuDNN's
+    # whole layer there (phase 10), which also does the x @ Wx product
+    # (and in the backward the weight and input gradients); the port's
+    # layer of the same scope is "port_layer_ms".
+    _, T, B, H, _ = LAYER_SHAPES[0]
     train_ms = train_times["student_L1"]
-    int8_ms, int8_plain_ms = int8_times["student_L1"]
+    rows = [
+        ("lstm_chunk_scan", "lstm_chunk_scan.cu", "72", launches, worst,
+         *times["student_L1"], library["cudnn_infer"], library["port_infer"]),
+        ("lstm_train_fwd", "lstm_train.cu", "230", train_launches[0], train_worst["fwd"],
+         train_ms["fwd"], train_ms["fwd_graph"], train_ms["fwd_plain"],
+         library["cudnn_train_fwd"], library["port_train_fwd"]),
+        ("lstm_train_bwd", "lstm_train.cu", "333", train_launches[1], train_worst["bwd"],
+         train_ms["bwd"], train_ms["bwd_graph"], train_ms["bwd_plain"],
+         library["cudnn_bwd"], library["port_bwd"]),
+        ("lstm_chunk_scan_int8", "lstm_chunk_scan_int8.cu", "475", int8_launches,
+         int8_worst, *int8_times["student_L1"], None, None),
+    ]
+    kernels = []
+    for name, source, line, count, err, k_ms, replay_ms, p_ms, lib_ms, layer_ms in rows:
+        b = bounds.bound(name, T, B, H)
+        kernels.append({
+            "name": name, "route": "cuda", "source": CSRC + source,
+            "replaces": PALLAS + line, "launches": count, "max_abs_err": err,
+            "ms": k_ms, "graph_ms": replay_ms, "plain_ms": p_ms, "bound_ms": b["ms"],
+            "bound_by": b["bound_by"], "library_ms": lib_ms, "port_layer_ms": layer_ms})
     log(f"[1] card: {smi}")
-    log(json.dumps({"kernels": [
-        {"name": "lstm_chunk_scan", "route": "cuda",
-         "source": CSRC + "lstm_chunk_scan.cu", "replaces": PALLAS + "72",
-         "launches": launches, "max_abs_err": worst, "ms": ms,
-         "plain_ms": plain_ms},
-        {"name": "lstm_train_fwd", "route": "cuda",
-         "source": CSRC + "lstm_train.cu", "replaces": PALLAS + "230",
-         "launches": train_launches[0], "max_abs_err": train_worst["fwd"],
-         "ms": train_ms["fwd"], "plain_ms": train_ms["fwd_plain"]},
-        {"name": "lstm_train_bwd", "route": "cuda",
-         "source": CSRC + "lstm_train.cu", "replaces": PALLAS + "333",
-         "launches": train_launches[1], "max_abs_err": train_worst["bwd"],
-         "ms": train_ms["bwd"], "plain_ms": train_ms["bwd_plain"]},
-        {"name": "lstm_chunk_scan_int8", "route": "cuda",
-         "source": CSRC + "lstm_chunk_scan_int8.cu", "replaces": PALLAS + "475",
-         "launches": int8_launches, "max_abs_err": int8_worst, "ms": int8_ms,
-         "plain_ms": int8_plain_ms},
-    ]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,0 +1,229 @@
+// Hopper (sm_90a) building blocks of the LSTM step kernels, as inline
+// PTX: TMA tensor maps and loads, mbarriers, and warpgroup MMAs (wgmma)
+// on bf16 tiles in 128-byte-swizzled shared memory, with f32 sums.
+//
+// Tensor maps are encoded on the host through the driver's
+// cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPointByVersion,
+// so the libraries link against the CUDA runtime alone (no -lcuda);
+// <cuda.h> is included for the driver's types and enums only.
+//
+// Shared-memory tiles: a TMA box of 64 bf16 (128 bytes) along K by R rows
+// lands as R rows of 128 bytes, swizzled in 1024-byte groups of 8 rows
+// (CU_TENSOR_MAP_SWIZZLE_128B). wgmma reads such a tile K-major through a
+// descriptor of layout 1 (128B swizzle) with an 8-row stride of 1024
+// bytes; its k16 slices start 32 bytes apart. Every tile starts on a
+// 1024-byte boundary.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+constexpr int kBK = 64;             // bf16 depth of one pipeline stage
+constexpr int kRowBytes = kBK * 2;  // one swizzled tile row
+constexpr int kStages = 4;         // depth of the shared-memory ring
+// The most dynamic shared memory a block may ask for and still share its
+// SM with a second block (228 KB an SM, 1 KB of it reserved per block).
+constexpr int kTwoBlockSmem = 113 * 1024;
+
+// Error codes of the kernels' C entry points beside the cudaError_t ones.
+constexpr int kErrNoEncoder = 100001;   // the driver has no cuTensorMapEncodeTiled
+constexpr int kErrTensorMap = 100002;   // a tensor map was refused
+constexpr int kErrTile = 100003;        // a tile the library was not built for
+
+inline const char* error_string(int code) {
+  switch (code) {
+    case kErrNoEncoder: return "the CUDA driver offers no cuTensorMapEncodeTiled";
+    case kErrTensorMap: return "cuTensorMapEncodeTiled refused a tensor map";
+    case kErrTile: return "no kernel was built for the requested tile";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(code));
+  }
+}
+
+// ------------------------------------------------------------------ host
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+    }
+  }
+  return fn;
+}
+
+// A tensor map of a row-major bf16 array [d2][d1][d0] (d0 contiguous)
+// read in boxes of 64 x `rows` x 1, 128-byte swizzled. Coordinates past
+// the array's ends read as zero. Returns 0 or an error code.
+inline int make_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
+                    uint64_t d2, uint32_t rows) {
+  const EncodeTiledFn encode = encoder();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kBK), rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+// ---------------------------------------------------------------- device
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte boundary at or after the start of dynamic shared
+// memory (the launch asks for 1024 bytes more than the tiles need).
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of TMA transactions.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the phase of parity `parity` of `bar` has completed. A wait
+// that outlasts any step by orders of magnitude (2^22 tries) traps, so a
+// fault in the pipeline ends the launch with an error instead of hanging
+// the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == (1u << 22)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// TMA: the box at (c0, c1, c2) of `map` into `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major, 128B-swizzled bf16 tile at `tile`.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x N] += A[64 x 16] * B[16 x N]: A and B K-major in shared memory,
+// bf16 in, f32 sums. Thread (warp w, lane l) of the warpgroup holds rows
+// 16w + l/4 (+8) and columns 8j + 2(l%4) (+1) in d[4j + {0, 1}] (row
+// 16w + l/4) and d[4j + {2, 3}] (row 16w + l/4 + 8).
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// The widths the step kernels' tiles use: N = 32 and 128.
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b) {
+  if constexpr (N == 32) {
+    wgmma_n32(d, a, b);
+  } else {
+    static_assert(N == 128, "wgmma width");
+    wgmma_n128(d, a, b);
+  }
+}
+
+}  // namespace hopper

@@ -101,6 +101,26 @@ def build_log(name: str) -> str:
     return path.with_name(path.name + ".log").read_text()
 
 
+def sass_counts(name: str, opcodes: Sequence[str]) -> Dict[str, Dict[str, int]]:
+    """How many instructions of each of `opcodes` (SASS mnemonics, e.g.
+    "HGMMA") each kernel of the built `ops/csrc/<name>.cu` holds, by
+    `cuobjdump -sass` (beside nvcc). Keys are the mangled kernel names."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = counts.setdefault(line.split("Function :")[1].strip(),
+                                        dict.fromkeys(opcodes, 0))
+        elif current is not None:
+            for op in opcodes:
+                if f" {op}" in line or f"\t{op}" in line:
+                    current[op] += 1
+    return counts
+
+
 def loaded() -> Dict[str, ctypes.CDLL]:
     """The libraries this process has loaded so far, by name."""
     return dict(_LIBS)

@@ -18,7 +18,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from efficientvideoclassification_youtube8m_torch.ops.kernels import _build
+from efficientvideoclassification_youtube8m_torch.ops.kernels import _build, layout
 
 _LIB_NAME = "lstm_chunk_scan"
 
@@ -60,7 +60,7 @@ def lstm_chunk_scan_reference(
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.lstm_chunk_scan_bf16
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.lstm_chunk_scan_error_string.argtypes = [ctypes.c_int]
@@ -145,26 +145,25 @@ def lstm_chunk_scan(
         return lstm_chunk_scan_reference(x_proj_tm, w_h, bias, seq_len,
                                          forget_bias)
 
-    w = w_h.to(torch.bfloat16)
     b = bias.to(torch.float32)
     seq = seq_len.to(torch.int32)
-    for name, tensor in (("x_proj_tm", x_proj_tm), ("w_h", w), ("bias", b),
-                         ("seq_len", seq)):
+    for name, tensor in (("x_proj_tm", x_proj_tm), ("bias", b), ("seq_len", seq)):
         if not tensor.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     outs = torch.empty(T, B, H, dtype=torch.bfloat16, device=dev)
-    c = torch.zeros(B, H, dtype=torch.float32, device=dev)
-    h = torch.zeros(2, B, H, dtype=torch.float32, device=dev)  # ping-pong
+    c, h, h_bf16 = layout.zero_state(B, H, dev)  # h, h_bf16: ping-pongs
     if T == 0 or B == 0:
         return outs, c, h[0]
+    bm, bu = layout.forward_tile(B, H)
+    w_packed = layout.pack_wh(w_h, bu, torch.bfloat16)
 
     lib = load_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lstm_chunk_scan_bf16(
-            x_proj_tm.data_ptr(), w.data_ptr(), b.data_ptr(), seq.data_ptr(),
-            outs.data_ptr(), c.data_ptr(), h.data_ptr(), T, B, H,
-            float(forget_bias), stream)
+            x_proj_tm.data_ptr(), w_packed.data_ptr(), b.data_ptr(),
+            seq.data_ptr(), outs.data_ptr(), c.data_ptr(), h.data_ptr(),
+            h_bf16.data_ptr(), T, B, H, bm, bu, float(forget_bias), stream)
     if err != 0:
         msg = lib.lstm_chunk_scan_error_string(err).decode()
         raise RuntimeError(f"lstm_chunk_scan kernel launch failed: {msg} ({err})")

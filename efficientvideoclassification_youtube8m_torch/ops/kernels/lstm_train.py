@@ -23,7 +23,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from efficientvideoclassification_youtube8m_torch.ops.kernels import _build
+from efficientvideoclassification_youtube8m_torch.ops.kernels import _build, layout
 from efficientvideoclassification_youtube8m_torch.ops.kernels.lstm_scan import (
     check_scan_inputs,
 )
@@ -123,11 +123,11 @@ def lstm_train_bwd_reference(
 
 def _declare(lib: ctypes.CDLL) -> None:
     fwd = lib.lstm_train_fwd_bf16
-    fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+    fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     fwd.restype = ctypes.c_int
     bwd = lib.lstm_train_bwd_bf16
-    bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+    bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     bwd.restype = ctypes.c_int
     lib.lstm_train_error_string.argtypes = [ctypes.c_int]
@@ -173,24 +173,25 @@ def lstm_train_fwd(
     if dev.type == "cpu":
         return lstm_train_fwd_reference(x_proj_tm, w_h, bias, seq_len,
                                         forget_bias)
-    w = w_h.to(torch.bfloat16)
     b = bias.to(torch.float32)
     seq = seq_len.to(torch.int32)
-    _require_contiguous(x_proj_tm=x_proj_tm, w_h=w, bias=b, seq_len=seq)
+    _require_contiguous(x_proj_tm=x_proj_tm, bias=b, seq_len=seq)
     outs = torch.empty(T, B, H, dtype=torch.bfloat16, device=dev)
     gates = torch.empty(T, B, 4 * H, dtype=torch.float32, device=dev)
     cs = torch.empty(T, B, H, dtype=torch.float32, device=dev)
-    c = torch.zeros(B, H, dtype=torch.float32, device=dev)
-    h = torch.zeros(2, B, H, dtype=torch.float32, device=dev)  # ping-pong
+    c, h, h_bf16 = layout.zero_state(B, H, dev)  # h, h_bf16: ping-pongs
     if T == 0 or B == 0:
         return outs, gates, cs, c, h[0]
+    bm, bu = layout.forward_tile(B, H)
+    w_packed = layout.pack_wh(w_h, bu, torch.bfloat16)
     lib = load_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lstm_train_fwd_bf16(
-            x_proj_tm.data_ptr(), w.data_ptr(), b.data_ptr(), seq.data_ptr(),
-            outs.data_ptr(), gates.data_ptr(), cs.data_ptr(), c.data_ptr(),
-            h.data_ptr(), T, B, H, float(forget_bias), stream)
+            x_proj_tm.data_ptr(), w_packed.data_ptr(), b.data_ptr(),
+            seq.data_ptr(), outs.data_ptr(), gates.data_ptr(), cs.data_ptr(),
+            c.data_ptr(), h.data_ptr(), h_bf16.data_ptr(), T, B, H, bm, bu,
+            float(forget_bias), stream)
     _raise_on(lib, err, "lstm_train_fwd")
     lstm_train_fwd.launches += 1
     return outs, gates, cs, c, h[T % 2]
@@ -246,7 +247,7 @@ def lstm_train_bwd(
         raise ValueError(f"the LSTM kernels run on cpu or cuda, not {dev.type}")
     if H % 8:
         raise ValueError(f"the CUDA kernels need H % 8 == 0, got H={H}")
-    w_t = w_h.to(torch.bfloat16).t().contiguous()  # [4H, H]
+    w = w_h.to(torch.bfloat16).contiguous()  # K-major for dgates @ Wh^T
     seq = seq_len.to(torch.int32)
     _require_contiguous(gates=gates, cs=cs, d_outs=d_outs, seq_len=seq)
     dgates = torch.empty(T, B, G, dtype=torch.bfloat16, device=dev)
@@ -255,13 +256,14 @@ def lstm_train_bwd(
     dh = d_hfin.contiguous().clone()
     dc = d_cfin.contiguous().clone()
     lo = torch.empty(2, B, G, dtype=torch.bfloat16, device=dev)
+    bm, bn = layout.backward_tile(B, H)
     lib = load_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lstm_train_bwd_bf16(
-            w_t.data_ptr(), gates.data_ptr(), cs.data_ptr(), d_outs.data_ptr(),
+            w.data_ptr(), gates.data_ptr(), cs.data_ptr(), d_outs.data_ptr(),
             seq.data_ptr(), dh.data_ptr(), dc.data_ptr(), dgates.data_ptr(),
-            lo.data_ptr(), T, B, H, stream)
+            lo.data_ptr(), T, B, H, bm, bn, stream)
     _raise_on(lib, err, "lstm_train_bwd")
     lstm_train_bwd.launches += 1
     return dgates

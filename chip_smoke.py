@@ -16,9 +16,10 @@ kernel's device time alone, the replay of a CUDA graph of one call
 (`graph_ms`), stands beside it. Phases:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA
-     versions, the kernels' build time and ptxas report, and the SASS of
-     the bf16 step kernels (`cuobjdump -sass`): each runs wgmma (HGMMA)
-     fed by TMA (UTMALDG) and no legacy mma.sync (HMMA);
+     versions, the kernels' build time and ptxas report (no spills), and
+     the SASS of the step kernels (`cuobjdump -sass`): each runs wgmma
+     (HGMMA for bf16, IGMMA for int8) fed by TMA (UTMALDG) and no legacy
+     mma.sync (HMMA, IMMA);
   2. `lstm_chunk_scan` against `lstm_chunk_scan_reference` in bf16 at the
      student and teacher layer shapes and a ragged one, with times, each
      beside its bound (ops/kernels/bounds.py), its share of the bound, its
@@ -42,7 +43,12 @@ kernel's device time alone, the replay of a CUDA graph of one call
      `build_finetune_step` step;
   7. `lstm_chunk_scan_int8` against `lstm_chunk_scan_int8_reference` at
      the layer shapes of phases 2 and 5, on inputs made as the int8 path
-     makes them, with times and bounds;
+     makes them, with times and bounds, the step and quantize kernels one
+     call launches (the profiler's count: 2T), the bf16 scan's times at
+     the same shape beside them and the time of the Wh_q pack the wrapper
+     makes once per weight tensor; then the kernel's quantize pass alone
+     on rows made to sit on rounding ties (`near_tie_rows`), bit for bit
+     against `quantize_rows_reference`;
   8. the flagship student through `Predictor(quantize="int8")` at
      serve_batch 256 on requests of 256, 100 and 513 videos: the int8
      launch count, the agreement with the plain int8 scan and the
@@ -50,6 +56,10 @@ kernel's device time alone, the replay of a CUDA graph of one call
      serving videos/s; then one batch of 256 through
      `build_quantized_eval_step` and `build_eval_step` on the kernel
      paths, their top-k overlap and PERR, and their host packs decoded;
+     last, at lstm_cells 100, a width the wrappers zero-pad for TMA, a
+     bf16 and an int8 `Predictor` serve through the kernels (exact launch
+     counts) against the plain-scan Predictors, and the distill losses
+     and gradients of the train kernels against the plain path;
   9. the five binaries through their `main(argv)`, each with the kernel
      counts set to 0 just before it and checked just after: (a)
      scripts/fidelity_check.py's run (10 synthetic videos a split at
@@ -101,7 +111,7 @@ from efficientvideoclassification_youtube8m_torch.metrics.eval_util import (
     train_step_metrics,
 )
 from efficientvideoclassification_youtube8m_torch.ops.kernels import _build
-from efficientvideoclassification_youtube8m_torch.ops.kernels import bounds
+from efficientvideoclassification_youtube8m_torch.ops.kernels import bounds, layout
 from efficientvideoclassification_youtube8m_torch.ops import quantize
 from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_scan
 from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_scan_int8
@@ -180,27 +190,32 @@ LAYER_SHAPES = [
     ("teacher_L2", 20, 256, 1024, 4096),
     ("ragged", 7, 13, 48, 40),
     ("single_step", 1, 9, 16, 24),  # the train backward's prologue alone
+    ("odd_width", 5, 24, 100, 40),  # H the wrappers zero-pad (104 bf16, 112 int8)
 ]
 SERVE_BATCH = 256
 FLAGSHIP_SHAPES = [s for s in LAYER_SHAPES if s[0].startswith(("student", "teacher"))]
 # Times of the earlier designs at the flagship layer shapes, from
 # PERF.md's kernel table (eager calls timed by CUDA events on an NVIDIA
 # H100 80GB HBM3 at 700 W): the WMMA step kernels of the bf16 serving and
-# train paths, and the int8 kernel. Printed beside this run's times for
-# the reader; one call cannot run both designs.
+# train paths, and the WMMA int8 kernel. Printed beside this run's times
+# for the reader; one call cannot run both designs.
 EARLIER_MS = {
     "lstm_chunk_scan": {"student_L1": 0.6686},
     "lstm_train_fwd": {"student_L1": 0.7333, "student_L2": 0.1737,
                        "teacher_L1": 6.2563, "teacher_L2": 0.6449},
     "lstm_train_bwd": {"student_L1": 1.3615, "student_L2": 0.3591,
                        "teacher_L1": 13.0186, "teacher_L2": 1.5155},
-    "lstm_chunk_scan_int8": {"student_L1": 0.8408, "student_L2": 0.2085,
-                             "teacher_L1": 7.4085, "teacher_L2": 0.8660},
+    "lstm_chunk_scan_int8": {"student_L1": 0.8368, "student_L2": 0.2060,
+                             "teacher_L1": 7.4173, "teacher_L2": 0.8676},
 }
-# The bf16 step kernels, by library: each must run wgmma fed by TMA.
-STEP_KERNELS = {"lstm_chunk_scan": ("lstm_step_kernel",),
-                "lstm_train": ("lstm_step_kernel", "lstm_bwd_step_kernel")}
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+# The step kernels, by library: each must run wgmma (the first opcode)
+# fed by TMA and no legacy mma.sync (the second).
+STEP_KERNELS = {"lstm_chunk_scan": (("lstm_step_kernel", "HGMMA", "HMMA"),),
+                "lstm_train": (("lstm_step_kernel", "HGMMA", "HMMA"),
+                               ("lstm_bwd_step_kernel", "HGMMA", "HMMA")),
+                "lstm_chunk_scan_int8": (("lstm_int8_step_kernel", "IGMMA", "IMMA"),)}
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
+NO_SPILLS = "0 bytes spill stores, 0 bytes spill loads"
 
 
 def log(*parts) -> None:
@@ -268,17 +283,22 @@ def phase_card() -> str:
     lstm_train.load_kernel()
     lstm_scan_int8.load_kernel()
     log(f"[1] kernel builds (parallel) + load: {time.perf_counter() - t0:.3f} s")
+    spills = []
     for name in LIBRARIES:
         for line in _build.build_log(name).splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[1] ptxas {name}: {line.strip()}")
+            if "spill" in line and NO_SPILLS not in line:
+                spills.append(f"{name}: {line.strip()}")
+    if spills:
+        raise AssertionError("ptxas reports spills: " + "; ".join(spills))
     for lib, kernels in STEP_KERNELS.items():
         counts = _build.sass_counts(lib, SASS_OPS)
-        for kernel in kernels:
+        for kernel, mma, legacy in kernels:
             found = {fn: c for fn, c in counts.items() if kernel in fn}
             for fn, c in found.items():
                 log(f"[1] sass {lib} {fn}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
-            if not found or not all(c["HGMMA"] and c["UTMALDG"] and not c["HMMA"]
+            if not found or not all(c[mma] and c["UTMALDG"] and not c[legacy]
                                     for c in found.values()):
                 raise AssertionError(f"{lib}: {kernel} is not a TMA-fed wgmma kernel")
     return smi
@@ -712,47 +732,120 @@ def int8_layer_case(T, B, H, D, gen):
     return xp, wh_q, wh_s, bias, seq
 
 
+def near_tie_rows(width: int = 1024) -> torch.Tensor:
+    """Rows of h [N, width] f32 (CPU) on which the int8 kernel's quantize
+    must take its true-quotient fallback: random rows at the scales the
+    model gives, and rows of values placed on, and a few ulps around,
+    every half-way point n + 1/2 of the scale s, each row holding 127 s
+    so that its scale is about s. tests/test_torch_kernel_layout.py holds
+    the kernel's rule (read from its source) against them on the CPU;
+    phase 7 holds the kernel itself against them."""
+    rng = np.random.default_rng(0)
+    rows = [np.tanh(rng.standard_normal(width) * s) for s in (0.01, 0.3, 1.0, 3.0)]
+    rows += [rng.standard_normal(width) * 1e-6, np.zeros(width)]
+    for s in (7.3e-3, 1.0 / 127, 0.0063):
+        half = (np.arange(-127, 127) + 0.5) * s
+        values = np.concatenate([half, half * (1 + 2e-7), half * (1 - 2e-7),
+                                 np.nextafter(half.astype(np.float32), np.inf),
+                                 np.nextafter(half.astype(np.float32), -np.inf)])
+        for i in range(0, len(values), width - 1):
+            chunk = values[i:i + width - 1]
+            rows.append(np.concatenate([chunk, [127 * s], np.zeros(width - 1 - len(chunk))]))
+    return torch.from_numpy(np.stack(rows).astype(np.float32))
+
+
+INT8_STEP_KERNELS = ("lstm_int8_step_kernel", "quantize_rows_kernel")
+
+
+def kernels_per_call(fn) -> int:
+    """The int8 step and quantize kernels one call of `fn` launches, by
+    torch.profiler's CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(evt.count for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA
+               and any(k in evt.key for k in INT8_STEP_KERNELS))
+
+
 def phase_int8_kernel():
+    """The int8 kernel against its plain version at every layer shape; at
+    the flagship shapes its times beside the bf16 scan's at the same
+    shape; its quantize pass on rows made to sit on rounding ties."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     worst = 0.0
     times = {}
     for name, T, B, H, D in LAYER_SHAPES:
         args = int8_layer_case(T, B, H, D, gen)
-        outs, c, h = lstm_scan_int8.lstm_chunk_scan_int8(*args)
+        tile = layout.int8_tile(B, layout.tma_width(H, 1))
         r_outs, r_c, r_h = lstm_scan_int8.lstm_chunk_scan_int8_reference(*args)
-        torch.cuda.synchronize()
         seq = args[4]
         past = torch.arange(T, device="cuda")[:, None] >= seq[None, :]
-        zeros_past_seq = bool((outs[past] == 0).all())
         empty = seq == 0
+        outs, c, h = lstm_scan_int8.lstm_chunk_scan_int8(*args)
+        torch.cuda.synchronize()
+        zeros_past_seq = bool((outs[past] == 0).all())
         zero_state = bool((c[empty] == 0).all() and (h[empty] == 0).all())
         err = {
             "outs": (outs.float() - r_outs.float()).abs().max().item(),
             "c_fin": (c - r_c).abs().max().item(),
             "h_fin": (h - r_h).abs().max().item(),
         }
+        log(f"[7] {name} T={T} B={B} H={H}, tile {tile[0]}x{tile[1]}: max|diff| outs "
+            f"{err['outs']:.3g} c_fin {err['c_fin']:.3g} h_fin {err['h_fin']:.3g}; zeros "
+            f"past seq {zeros_past_seq}, zero state at seq 0 {zero_state}")
+        if not (zeros_past_seq and zero_state):
+            raise AssertionError(f"{name}: int8 masking is wrong")
+        if not all(map(math.isfinite, err.values())):
+            raise AssertionError(f"{name}: non-finite difference {err}")
+        if err["outs"] > TOL_INT8_OUTS or max(err["c_fin"], err["h_fin"]) > TOL_INT8_FINALS:
+            raise AssertionError(f"{name}: int8 kernel and plain version disagree: {err}")
+        per_call = kernels_per_call(lambda: lstm_scan_int8.lstm_chunk_scan_int8(*args))
+        log(f"[7] {name}: one call launches {per_call} step and quantize kernels "
+            f"(T={T}: 2T)")
+        if per_call != 2 * T:
+            raise AssertionError(f"{name}: {per_call} kernels a call, not {2 * T}")
         iters = 20 if B >= 256 else 5
         ms = cuda_ms(lambda: lstm_scan_int8.lstm_chunk_scan_int8(*args), iters)
         replay_ms = graph_ms(lambda: lstm_scan_int8.lstm_chunk_scan_int8(*args), iters)
         plain_ms = cuda_ms(lambda: lstm_scan_int8.lstm_chunk_scan_int8_reference(*args),
                            iters)
         times[name] = (ms, replay_ms, plain_ms)
-        log(f"[7] {name} T={T} B={B} H={H}: max|diff| outs {err['outs']:.3g} "
-            f"c_fin {err['c_fin']:.3g} h_fin {err['h_fin']:.3g}; "
-            f"zeros past seq {zeros_past_seq}, zero state at seq 0 {zero_state}; "
-            f"kernel {ms:.4f} ms (graph replay {replay_ms:.4f}), plain {plain_ms:.4f} ms")
+        log(f"[7] {name}: kernel {ms:.4f} ms (graph replay {replay_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms")
         if (name, T, B, H, D) in FLAGSHIP_SHAPES:
+            xp, wh_q, wh_s, bias, _ = args
+            bf16_args = (xp, (wh_q.float() * wh_s).bfloat16(), bias, seq)
+            b_ms = cuda_ms(lambda: lstm_scan.lstm_chunk_scan(*bf16_args), iters)
+            b_replay = graph_ms(lambda: lstm_scan.lstm_chunk_scan(*bf16_args), iters)
             log(f"[7] {name}: " + against_bound("lstm_chunk_scan_int8", name, T, B, H, ms,
                                                 replay_ms))
-        if not (zeros_past_seq and zero_state):
-            raise AssertionError(f"{name}: int8 masking is wrong")
-        if not all(map(math.isfinite, err.values())):
-            raise AssertionError(f"{name}: non-finite difference {err}")
-        if (err["outs"] > TOL_INT8_OUTS
-                or max(err["c_fin"], err["h_fin"]) > TOL_INT8_FINALS):
-            raise AssertionError(f"{name}: int8 kernel and plain version disagree: {err}")
+            log(f"[7] {name}: bf16 scan at this shape {b_ms:.4f} ms (graph replay "
+                f"{b_replay:.4f}); int8 / bf16: eager {ms / b_ms:.3f}, replay "
+                f"{replay_ms / b_replay:.3f}")
+            if name == "student_L1":
+                pack_ms = cuda_ms(lambda: layout.pack_wh(wh_q, tile[1]), iters)
+                log(f"[7] the Wh_q pack (layout.pack_wh, made once per weight tensor "
+                    f"by the wrapper) at H={H}: {pack_ms:.4f} ms a pack")
         worst = max(worst, *err.values())
     log(f"[7] tolerances: outs {TOL_INT8_OUTS}, finals {TOL_INT8_FINALS}")
+
+    rows = near_tie_rows()
+    want_q, want_scale = lstm_scan_int8.quantize_rows_reference(rows)
+    inv = torch.tensor(1.0) / want_scale
+    by_product = int((torch.clamp(torch.round(rows * inv), -127, 127) != want_q).sum())
+    h_q, h_scale = lstm_scan_int8.quantize_rows(rows.cuda())
+    torch.cuda.synchronize()
+    q_diff = int((h_q.cpu().float() != want_q).sum())
+    s_diff = int((h_scale.cpu() != want_scale[:, 0]).sum())
+    log(f"[7] quantize pass on {rows.shape[0]} near-tie rows of {rows.shape[1]}: "
+        f"{by_product} values that the reciprocal product alone rounds otherwise; "
+        f"the card's h_q differs from the plain version's at {q_diff}, h_scale at {s_diff}")
+    if by_product == 0 or q_diff or s_diff:
+        raise AssertionError("the int8 quantize pass does not round as the true quotient")
     return worst, times
 
 
@@ -870,6 +963,63 @@ def phase_int8_serving(smi):
         f"{host_q['hit_at_one']:.4g}, bf16 {host_b['hit_at_one']:.4g}; host packs "
         f"decode to each step's own top-k, CE and PERR")
     return launches
+
+
+# A width the wrappers zero-pad for TMA: to 104 units in bf16, 112 in int8.
+ODD_CELLS = 100
+
+
+def phase_routing():
+    """At lstm_cells 100 the JAX model runs its Pallas kernels, and so does
+    the port: a bf16 and an int8 Predictor serve through the kernels,
+    held against the Predictors on the plain scans, and the distill
+    losses and gradients through the train kernels against the plain
+    path."""
+    cfg = TrainConfig(compute_dtype="bfloat16", lstm_cells=ODD_CELLS)
+    model = init_model(cfg, torch.Generator().manual_seed(3), device="cuda")
+    feats, nf = next(requests((64,), cfg, seed=9))
+    levels = 2 * cfg.lstm_layers
+    for quant, kernel in (("none", "lstm_chunk_scan"), ("int8", "lstm_chunk_scan_int8")):
+        p = Predictor(cfg, model, serve_batch=SERVE_BATCH, device="cuda", quantize=quant)
+        plain = Predictor(cfg.replace(use_pallas_inference=False), model,
+                          serve_batch=SERVE_BATCH, device="cuda", quantize=quant)
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        probs = p.predict(feats, nf)
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in COUNTERS.items()}
+        check_predictions(probs, len(nf), cfg.num_classes, f"lstm_cells {ODD_CELLS} {quant}")
+        err = float(np.abs(probs - plain.predict(feats, nf)).max())
+        log(f"[8] lstm_cells {ODD_CELLS}, quantize {quant}: served 64 videos, kernel "
+            f"launches {counts}; max|kernel - plain scan| {err:.3g} (tolerance "
+            f"{TOL_PREDICTIONS})")
+        if counts != {name: levels if name == kernel else 0 for name in COUNTERS}:
+            raise AssertionError(f"lstm_cells {ODD_CELLS} {quant}: launches {counts}")
+        if err > TOL_PREDICTIONS:
+            raise AssertionError(f"lstm_cells {ODD_CELLS} {quant}: the kernel path and "
+                                 "the plain path disagree")
+
+    cfg = cfg.replace(batch_size=32)
+    opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
+    state = init_distill_state(cfg, opt, torch.Generator().manual_seed(4), device="cuda")
+    batch = distill_batch(cfg, cfg.batch_size, seed=10)
+    before = train_counts()
+    k_ls, _, k_gt, k_gs = distill_loss_and_grads(cfg, state, *batch)
+    delta = [a - b for a, b in zip(train_counts(), before)]
+    p_ls, _, p_gt, p_gs = distill_loss_and_grads(cfg, state, *batch,
+                                                 kernel_train_mode="off")
+    loss_bad = [k for k in k_ls if abs(k_ls[k].item() - p_ls[k].item())
+                > TOL_LOSS_REL * abs(p_ls[k].item()) + TOL_LOSS_ABS]
+    grad_err = max(rel_err(g[n], p[n]) for g, p in ((k_gt, p_gt), (k_gs, p_gs)) for n in g)
+    log(f"[8] lstm_cells {ODD_CELLS}, distill batch {cfg.batch_size}: train launches fwd "
+        f"{delta[0]} bwd {delta[1]}; losses kernel / plain " + "; ".join(
+            f"{k} {k_ls[k].item():.6g} / {p_ls[k].item():.6g}" for k in k_ls)
+        + f"; gradients max|diff| of max, worst {grad_err:.3g}")
+    if delta != [2 * levels, 2 * levels]:
+        raise AssertionError(f"lstm_cells {ODD_CELLS}: {delta} train launches")
+    if loss_bad or not math.isfinite(grad_err) or grad_err > TOL_GRAD_REL:
+        raise AssertionError(f"lstm_cells {ODD_CELLS}: kernel and plain distill disagree "
+                             f"({loss_bad}, {grad_err})")
 
 
 # ------------------------------------------- phase 9: the five binaries
@@ -1344,6 +1494,7 @@ def main() -> None:
     train_launches, step_rate = phase_distill(smi)
     int8_worst, int8_times = phase_int8_kernel()
     int8_launches = phase_int8_serving(smi)
+    phase_routing()
     phase_pipeline(smi, step_rate)
     library = phase_library(smi)["student_L1"]
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack") for m in sys.modules):

@@ -1,18 +1,20 @@
 // Hopper (sm_90a) building blocks of the LSTM step kernels, as inline
 // PTX: TMA tensor maps and loads, mbarriers, and warpgroup MMAs (wgmma)
-// on bf16 tiles in 128-byte-swizzled shared memory, with f32 sums.
+// on bf16 tiles with f32 sums and on int8 tiles with int32 sums, in
+// 128-byte-swizzled shared memory.
 //
 // Tensor maps are encoded on the host through the driver's
 // cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPointByVersion,
 // so the libraries link against the CUDA runtime alone (no -lcuda);
 // <cuda.h> is included for the driver's types and enums only.
 //
-// Shared-memory tiles: a TMA box of 64 bf16 (128 bytes) along K by R rows
-// lands as R rows of 128 bytes, swizzled in 1024-byte groups of 8 rows
-// (CU_TENSOR_MAP_SWIZZLE_128B). wgmma reads such a tile K-major through a
-// descriptor of layout 1 (128B swizzle) with an 8-row stride of 1024
-// bytes; its k16 slices start 32 bytes apart. Every tile starts on a
-// 1024-byte boundary.
+// Shared-memory tiles: a TMA box of 128 bytes along K (64 bf16 or 128
+// int8) by R rows lands as R rows of 128 bytes, swizzled in 1024-byte
+// groups of 8 rows (CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk q of
+// row r sits at chunk q ^ (r % 8)). wgmma reads such a tile K-major
+// through a descriptor of layout 1 (128B swizzle) with an 8-row stride of
+// 1024 bytes; its k slices (k16 of bf16, k32 of int8) start 32 bytes
+// apart. Every tile starts on a 1024-byte boundary.
 
 #pragma once
 
@@ -70,18 +72,22 @@ inline EncodeTiledFn encoder() {
   return fn;
 }
 
-// A tensor map of a row-major bf16 array [d2][d1][d0] (d0 contiguous)
-// read in boxes of 64 x `rows` x 1, 128-byte swizzled. Coordinates past
-// the array's ends read as zero. Returns 0 or an error code.
+// A tensor map of a row-major array [d2][d1][d0] (d0 contiguous) of bf16
+// or, with `type` CU_TENSOR_MAP_DATA_TYPE_UINT8, of 8-bit integers, read
+// in boxes of 128 bytes x `rows` x 1, 128-byte swizzled. Row strides must
+// be multiples of 16 bytes. Coordinates past the array's ends read as
+// zero. Returns 0 or an error code.
 inline int make_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
-                    uint64_t d2, uint32_t rows) {
+                    uint64_t d2, uint32_t rows,
+                    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn encode = encoder();
   if (encode == nullptr) return kErrNoEncoder;
+  const uint64_t elem_bytes = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kBK), rows, 1};
+  const cuuint64_t strides[2] = {d0 * elem_bytes, d0 * d1 * elem_bytes};  // dims 1, 2
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kRowBytes / elem_bytes), rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+  const CUresult res = encode(map, type, 3, const_cast<void*>(base),
                               dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -180,6 +186,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // d[64 x N] += A[64 x 16] * B[16 x N]: A and B K-major in shared memory,
 // bf16 in, f32 sums. Thread (warp w, lane l) of the warpgroup holds rows
 // 16w + l/4 (+8) and columns 8j + 2(l%4) (+1) in d[4j + {0, 1}] (row
@@ -212,6 +224,29 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t 
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 32] * B[32 x 128]: A and B K-major in shared
+// memory (the only order wgmma takes for 8-bit types), s8 in, exact s32
+// sums; d is laid out as in wgmma_n128.
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(a), "l"(b), "r"(1));
 }
 

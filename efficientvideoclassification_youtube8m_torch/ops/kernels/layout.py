@@ -1,6 +1,6 @@
-"""What the bf16 LSTM step kernels need around them: the packed Wh of
-the forward and the tile each kernel runs with (ops/csrc/lstm_step.cuh,
-ops/csrc/lstm_train.cu).
+"""What the LSTM step kernels need around them: the packed Wh of the
+forward and the tile each kernel runs with (ops/csrc/lstm_step.cuh,
+ops/csrc/lstm_train.cu, ops/csrc/lstm_chunk_scan_int8.cu).
 
 The forward's block owns BU hidden units and all four gate columns of
 them, and reads its slice of Wh K-major as one TMA box, so the wrapper
@@ -9,8 +9,18 @@ packs Wh once per call: row ``tile*4*BU + g*BU + uu`` of the packed
 units past H. The backward's product ``dgates @ Whᵀ`` reads Wh ``[H, 4H]``
 itself: it is already K-major there, one unit a row.
 
-The libraries are built for the tiles in `FWD_TILES` and `BWD_TILES`
-only; the plan functions pick one of them from the layer's shape.
+The int8 forward packs its Wh_q the same way, into int8 slabs.
+
+TMA reads rows whose strides are multiples of 16 bytes, so the kernels
+run at a hidden size that makes a row of h 16 bytes long (`tma_width`):
+a wrapper zero-pads any other H up to it (`pad_gates`, `pad_wh`) and
+slices its outputs back. A padded unit's gates are 0 and its zero rows
+of Wh add nothing to the products, so its c and h stay exactly 0 and the
+real units come out as at H.
+
+The libraries are built for the tiles in `FWD_TILES`, `BWD_TILES` and
+`INT8_TILES` only; the plan functions pick one of them from the layer's
+shape.
 """
 
 from __future__ import annotations
@@ -33,6 +43,10 @@ SMS = 132  # streaming multiprocessors of an H100 SXM
 # (backward) by TMA multicast were no faster on an H100 (PERF.md).
 FWD_TILES = ((128, 32), (64, 32))
 BWD_TILES = ((64, 128), (64, 32))
+# int8 forward: 128 x 32 units where that gives every SM two blocks
+# (student and teacher L1, where it was faster than 64 x 32 on an H100),
+# else 64 x 32 (the B=256 layers: 128 blocks for 132 SMs).
+INT8_TILES = ((128, 32), (64, 32))
 WAVES = 2  # blocks an SM that a preferred tile must give
 
 
@@ -50,6 +64,45 @@ def pack_wh(w_h: torch.Tensor, bu: int, dtype: Optional[torch.dtype] = None) -> 
     packed = torch.empty(tiles, 4, bu, H, dtype=dtype or w_h.dtype, device=w_h.device)
     packed.permute(3, 1, 0, 2).copy_(w.reshape(H, 4, tiles, bu))  # [k, g, tile, uu]
     return packed.view(tiles * 4 * bu, H)
+
+
+def tma_width(H: int, itemsize: int) -> int:
+    """H rounded up so that H elements of `itemsize` bytes fill whole 16-byte
+    units, as a TMA row stride must."""
+    multiple = 16 // itemsize
+    return -(-H // multiple) * multiple
+
+
+def pad_units(x: torch.Tensor, Hp: int) -> torch.Tensor:
+    """x ``[..., H]`` with zero units appended up to ``[..., Hp]``."""
+    H = x.shape[-1]
+    return x if Hp == H else torch.nn.functional.pad(x, (0, Hp - H))
+
+
+def pad_gates(x: torch.Tensor, Hp: int) -> torch.Tensor:
+    """x ``[..., 4H]`` (gate g of unit u at ``g*H + u``) -> ``[..., 4Hp]``,
+    each gate's units zero-padded up to Hp."""
+    H = x.shape[-1] // 4
+    if Hp == H:
+        return x
+    return pad_units(x.unflatten(-1, (4, H)), Hp).flatten(-2)
+
+
+def unpad_gates(x: torch.Tensor, H: int) -> torch.Tensor:
+    """The inverse of `pad_gates`: ``[..., 4Hp]`` -> ``[..., 4H]``, contiguous."""
+    Hp = x.shape[-1] // 4
+    if Hp == H:
+        return x
+    return x.unflatten(-1, (4, Hp))[..., :H].flatten(-2)
+
+
+def pad_wh(w_h: torch.Tensor, Hp: int) -> torch.Tensor:
+    """Wh ``[H, 4H]`` -> ``[Hp, 4Hp]``, zero rows and gate columns for the
+    units past H."""
+    H = w_h.shape[0]
+    if Hp == H:
+        return w_h
+    return pad_gates(torch.nn.functional.pad(w_h, (0, 0, 0, Hp - H)), Hp)
 
 
 def zero_state(B: int, H: int, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -95,3 +148,8 @@ def forward_tile(B: int, H: int) -> Tuple[int, int]:
 def backward_tile(B: int, H: int) -> Tuple[int, int]:
     """(rows, units) of the backward step kernel for a [B, H] layer."""
     return _plan(B, H, BWD_TILES)
+
+
+def int8_tile(B: int, H: int) -> Tuple[int, int]:
+    """(rows, units) of the int8 step kernel for a [B, H] layer."""
+    return _plan(B, H, INT8_TILES)

@@ -8,7 +8,9 @@ projection ``x @ Wx`` stays outside the kernel as one bf16 matmul;
 (ops/csrc/lstm_chunk_scan.cu).
 
 `lstm_chunk_scan` takes its plain version only for tensors on the CPU.
-For a CUDA tensor it launches the kernel or raises.
+For a CUDA tensor it launches the kernel or raises. The kernel takes any
+hidden size: the wrapper zero-pads H to a multiple of 8 (16-byte bf16
+rows for TMA; `layout.tma_width`) and slices the outputs back.
 """
 
 from __future__ import annotations
@@ -107,8 +109,6 @@ def check_scan_inputs(x_proj_tm: torch.Tensor, w_h: torch.Tensor,
             raise ValueError(f"{name} is on {tensor.device}, x_proj_tm on {dev}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"the LSTM kernels run on cpu or cuda, not {dev.type}")
-    if dev.type == "cuda" and H % 8:
-        raise ValueError(f"the CUDA kernels need H % 8 == 0, got H={H}")
     return T, B, H
 
 
@@ -145,6 +145,13 @@ def lstm_chunk_scan(
         return lstm_chunk_scan_reference(x_proj_tm, w_h, bias, seq_len,
                                          forget_bias)
 
+    Hp = layout.tma_width(H, 2)
+    if Hp != H:
+        outs, c, h = lstm_chunk_scan(layout.pad_gates(x_proj_tm, Hp),
+                                     layout.pad_wh(w_h, Hp),
+                                     layout.pad_gates(bias, Hp), seq_len, forget_bias)
+        return (outs[..., :H].contiguous(), c[:, :H].contiguous(),
+                h[:, :H].contiguous())
     b = bias.to(torch.float32)
     seq = seq_len.to(torch.int32)
     for name, tensor in (("x_proj_tm", x_proj_tm), ("bias", b), ("seq_len", seq)):

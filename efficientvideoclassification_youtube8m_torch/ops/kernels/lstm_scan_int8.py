@@ -9,17 +9,21 @@ rescale, the gate math and the masking run in the kernel
 (ops/csrc/lstm_chunk_scan_int8.cu).
 
 `lstm_chunk_scan_int8` takes its plain version only for tensors on the
-CPU. For a CUDA tensor it launches the kernel or raises.
+CPU. For a CUDA tensor it launches the kernel or raises. The kernel takes
+any hidden size: the wrapper zero-pads H to a multiple of 16 (16-byte
+int8 rows for TMA; `layout.tma_width`) and slices the outputs back; a
+padded unit's h stays 0, so the row scales are those at H.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import weakref
+from typing import Dict, Tuple
 
 import torch
 
-from efficientvideoclassification_youtube8m_torch.ops.kernels import _build
+from efficientvideoclassification_youtube8m_torch.ops.kernels import _build, layout
 from efficientvideoclassification_youtube8m_torch.ops.kernels.lstm_scan import (
     check_scan_inputs,
 )
@@ -36,6 +40,14 @@ def row_scale(x: torch.Tensor) -> torch.Tensor:
     amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
     divisor = torch.full((), 127.0, dtype=amax.dtype, device=amax.device)
     return torch.clamp(amax / divisor, min=1e-12).to(torch.float32)
+
+
+def quantize_rows_reference(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-step row quantization of h ``[B, H]`` f32: (h_q, the
+    integers of ``clip(round_half_even(h / h_scale), -127, 127)`` in f32,
+    and h_scale ``[B, 1]`` from `row_scale`)."""
+    h_scale = row_scale(h)
+    return torch.clamp(torch.round(h / h_scale), -127, 127), h_scale
 
 
 def lstm_chunk_scan_int8_reference(
@@ -64,8 +76,7 @@ def lstm_chunk_scan_int8_reference(
     h = torch.zeros(B, H, dtype=torch.float32, device=dev)
     outs = torch.empty(T, B, H, dtype=torch.bfloat16, device=dev)
     for t in range(T):
-        h_scale = row_scale(h)
-        h_q = torch.clamp(torch.round(h / h_scale), -127, 127)
+        h_q, h_scale = quantize_rows_reference(h)
         acc = (h_q.to(torch.float64) @ w).to(torch.float32)
         gates = (x_proj_tm[t].to(torch.bfloat16).to(torch.float32) + b
                  + acc * h_scale * ws)
@@ -82,9 +93,12 @@ def lstm_chunk_scan_int8_reference(
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.lstm_chunk_scan_int8
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.lstm_int8_quantize_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    lib.lstm_int8_quantize_rows.restype = ctypes.c_int
     lib.lstm_chunk_scan_int8_error_string.argtypes = [ctypes.c_int]
     lib.lstm_chunk_scan_int8_error_string.restype = ctypes.c_char_p
 
@@ -93,6 +107,33 @@ def load_kernel() -> ctypes.CDLL:
     """Build ops/csrc/lstm_chunk_scan_int8.cu (at its first use in a
     checkout) and load it."""
     return _build.load_library(_LIB_NAME, _declare)
+
+
+# Wh_q packed for the kernel, by the id of the weight tensor: (a weak
+# reference to it, its version, the pack's units, the packed slabs).
+_PACKED: Dict[int, tuple] = {}
+
+
+def packed_wh_q(wh_q: torch.Tensor, units: int, Hp: int) -> torch.Tensor:
+    """`layout.pack_wh` of Wh_q, zero-padded to Hp units, for `units`:
+    made once per weight tensor and kept while the tensor lives and is not
+    changed in place. A Predictor or an eval step passes the same Wh_q on
+    every call, so none but the first pays for the pack, a byte-strided
+    copy (chip_smoke.py phase 7 times it)."""
+    key = id(wh_q)
+    entry = _PACKED.get(key)
+    if entry is not None and entry[0]() is wh_q and entry[1:3] == (wh_q._version, units):
+        return entry[3]
+    packed = layout.pack_wh(layout.pad_wh(wh_q, Hp), units)
+    ref = weakref.ref(wh_q, lambda _: _PACKED.pop(key, None))
+    _PACKED[key] = (ref, wh_q._version, units, packed)
+    return packed
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.lstm_chunk_scan_int8_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
 def lstm_chunk_scan_int8(
@@ -106,9 +147,11 @@ def lstm_chunk_scan_int8(
     """Fused int8 T-step LSTM layer scan (time-major IO). Returns
     (outputs bf16 [T,B,H], final_c f32 [B,H], final_h f32 [B,H]).
 
-    On CUDA tensors this launches ops/csrc/lstm_chunk_scan_int8.cu (two
-    launches a step on the current stream, no synchronisation) and adds
-    one to `lstm_chunk_scan_int8.launches`; on CPU tensors it runs
+    On CUDA tensors this launches ops/csrc/lstm_chunk_scan_int8.cu with
+    the tile of `layout.int8_tile` (a quantize pass and a step kernel a
+    step on the current stream, no synchronisation) and adds one to
+    `lstm_chunk_scan_int8.launches`; Wh_q is packed once per weight tensor
+    (`packed_wh_q`). On CPU tensors it runs
     `lstm_chunk_scan_int8_reference`. Anything the kernel does not take
     raises. Like `lstm_chunk_scan` it is forward-only: with grad mode on
     and an input that requires grad it raises."""
@@ -129,35 +172,66 @@ def lstm_chunk_scan_int8(
     if dev.type == "cpu":
         return lstm_chunk_scan_int8_reference(x_proj_tm, wh_q, wh_scale, bias,
                                               seq_len, forget_bias)
-
-    ws = wh_scale.to(torch.float32)
-    b = bias.to(torch.float32)
+    Hp = layout.tma_width(H, 1)
+    xp = layout.pad_gates(x_proj_tm, Hp)
+    ws = layout.pad_gates(wh_scale.to(torch.float32), Hp)
+    b = layout.pad_gates(bias.to(torch.float32), Hp)
     seq = seq_len.to(torch.int32)
-    for name, tensor in (("x_proj_tm", x_proj_tm), ("wh_q", wh_q),
-                         ("wh_scale", ws), ("bias", b), ("seq_len", seq)):
+    for name, tensor in (("x_proj_tm", xp), ("wh_scale", ws), ("bias", b),
+                         ("seq_len", seq)):
         if not tensor.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    outs = torch.empty(T, B, H, dtype=torch.bfloat16, device=dev)
-    c = torch.zeros(B, H, dtype=torch.float32, device=dev)
-    h = torch.zeros(2, B, H, dtype=torch.float32, device=dev)  # ping-pong
+    outs = torch.empty(T, B, Hp, dtype=torch.bfloat16, device=dev)
+    # c and the h ping-pong, zeroed in one allocation
+    bh = B * Hp
+    state = torch.zeros(3 * bh, dtype=torch.float32, device=dev)
+    c, h = state[:bh].view(B, Hp), state[bh:].view(2, B, Hp)
     if T == 0 or B == 0:
-        return outs, c, h[0]
-    h_q = torch.empty(B, H, dtype=torch.int8, device=dev)
+        return outs[..., :H], c[:, :H], h[0, :, :H]
+    h_q = torch.empty(B, Hp, dtype=torch.int8, device=dev)
     h_scale = torch.empty(B, dtype=torch.float32, device=dev)
-
+    rows, units = layout.int8_tile(B, Hp)
+    w_packed = packed_wh_q(wh_q, units, Hp)
     lib = load_kernel()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lstm_chunk_scan_int8(
-            x_proj_tm.data_ptr(), wh_q.data_ptr(), ws.data_ptr(), b.data_ptr(),
+            xp.data_ptr(), w_packed.data_ptr(), ws.data_ptr(), b.data_ptr(),
             seq.data_ptr(), outs.data_ptr(), c.data_ptr(), h.data_ptr(),
-            h_q.data_ptr(), h_scale.data_ptr(), T, B, H, float(forget_bias),
-            stream)
-    if err != 0:
-        msg = lib.lstm_chunk_scan_int8_error_string(err).decode()
-        raise RuntimeError(f"lstm_chunk_scan_int8 kernel launch failed: {msg} ({err})")
+            h_q.data_ptr(), h_scale.data_ptr(), T, B, Hp, rows, units,
+            float(forget_bias), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "lstm_chunk_scan_int8")
     lstm_chunk_scan_int8.launches += 1
+    if Hp != H:
+        return (outs[..., :H].contiguous(), c[:, :H].contiguous(),
+                h[T % 2, :, :H].contiguous())
     return outs, c, h[T % 2]
 
 
 lstm_chunk_scan_int8.launches = 0
+
+
+def quantize_rows(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's per-step row quantization alone, on h ``[B, H]`` f32
+    with H % 4 == 0: (h_q int8 [B, H], h_scale f32 [B]). On a CUDA tensor
+    it launches the library's quantize pass (the one `lstm_chunk_scan_int8`
+    launches before every step; not counted in its launches), so that
+    rows made to sit on rounding ties can be held against
+    `quantize_rows_reference`; on a CPU tensor it runs that plain
+    version."""
+    if h.dim() != 2 or h.dtype != torch.float32 or h.shape[1] % 4:
+        raise ValueError(f"h must be [B, H] f32 with H % 4 == 0, got "
+                         f"{tuple(h.shape)} {h.dtype}")
+    if h.device.type == "cpu":
+        h_q, h_scale = quantize_rows_reference(h)
+        return h_q.to(torch.int8), h_scale[:, 0]
+    h = h.contiguous()
+    B, H = h.shape
+    h_q = torch.empty(B, H, dtype=torch.int8, device=h.device)
+    h_scale = torch.empty(B, dtype=torch.float32, device=h.device)
+    lib = load_kernel()
+    with torch.cuda.device(h.device):
+        err = lib.lstm_int8_quantize_rows(
+            h.data_ptr(), h_q.data_ptr(), h_scale.data_ptr(), B, H,
+            torch.cuda.current_stream(h.device).cuda_stream)
+    _raise_on(lib, err, "lstm_int8_quantize_rows")
+    return h_q, h_scale

@@ -14,6 +14,11 @@ outside the kernels.
 
 `lstm_train_fwd` and `lstm_train_bwd` take their plain versions only
 for tensors on the CPU. For CUDA tensors they launch the kernel or raise.
+The kernels take any hidden size: the wrappers zero-pad H to a multiple
+of 8 (16-byte bf16 rows for TMA; `layout.tma_width`) and slice the
+outputs back. In the backward the padded units' residuals are zero: with
+zero rows of Wh and zero cotangents their dh and dc stay 0, so their
+dgates are 0 whatever the gates.
 """
 
 from __future__ import annotations
@@ -173,6 +178,13 @@ def lstm_train_fwd(
     if dev.type == "cpu":
         return lstm_train_fwd_reference(x_proj_tm, w_h, bias, seq_len,
                                         forget_bias)
+    Hp = layout.tma_width(H, 2)
+    if Hp != H:
+        outs, gates, cs, c, h = lstm_train_fwd(
+            layout.pad_gates(x_proj_tm, Hp), layout.pad_wh(w_h, Hp),
+            layout.pad_gates(bias, Hp), seq_len, forget_bias)
+        return (outs[..., :H].contiguous(), layout.unpad_gates(gates, H),
+                cs[..., :H].contiguous(), c[:, :H].contiguous(), h[:, :H].contiguous())
     b = bias.to(torch.float32)
     seq = seq_len.to(torch.int32)
     _require_contiguous(x_proj_tm=x_proj_tm, bias=b, seq_len=seq)
@@ -245,8 +257,12 @@ def lstm_train_bwd(
                                         d_hfin, seq_len)
     if dev.type != "cuda":
         raise ValueError(f"the LSTM kernels run on cpu or cuda, not {dev.type}")
-    if H % 8:
-        raise ValueError(f"the CUDA kernels need H % 8 == 0, got H={H}")
+    Hp = layout.tma_width(H, 2)
+    if Hp != H:
+        dgates = lstm_train_bwd(
+            layout.pad_wh(w_h, Hp), layout.pad_gates(gates, Hp),
+            *(layout.pad_units(x, Hp) for x in (cs, d_outs, d_cfin, d_hfin)), seq_len)
+        return layout.unpad_gates(dgates, H)
     w = w_h.to(torch.bfloat16).contiguous()  # K-major for dgates @ Wh^T
     seq = seq_len.to(torch.int32)
     _require_contiguous(gates=gates, cs=cs, d_outs=d_outs, seq_len=seq)

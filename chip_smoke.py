@@ -16,7 +16,9 @@ kernel's device time alone, the replay of a CUDA graph of one call
 (`graph_ms`), stands beside it. Phases:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA
-     versions, the kernels' build time and ptxas report (no spills), and
+     versions, the kernels' build time and ptxas report (no spills), the
+     data parser that runs (native, and where its library was built, or
+     pure Python), and
      the SASS of the step kernels (`cuobjdump -sass`): each runs wgmma
      (HGMMA for bf16, IGMMA for int8) fed by TMA (UTMALDG) and no legacy
      mma.sync (HMMA, IMMA);
@@ -66,10 +68,18 @@ kernel's device time alone, the replay of a CUDA graph of one call
      flagship widths, batch 5, its canonical flags and its bands against
      the reference's golden log), then validate, convert (the student
      bit-equal), finetune and eval in bf16 and int8 (epoch metrics within
-     2e-3); (b) cli.train at batch 256 over 512 videos x 2 epochs, its
+     2e-3); (c) on 9a's finetuned student and validate shards the
+     inference binaries, with exact launch counts: cli.infer bf16 (its
+     rows against format_lines of Predictor.from_checkpoint's predictions
+     of the same videos) and int8 (within 1e-3 of bf16),
+     cli.inference_bias, cli.max_ensemble over the CSVs,
+     cli.inspect_checkpoint (one row per leaf) and cli.hash_check; (b)
+     cli.train at batch 256 over 512 videos x 2 epochs, its
      Examples/Second against phase 6's step rate, the checkpoint's size
-     and save/restore seconds, then cli.eval bf16 and int8 over 600
-     videos with the CLI's examples/s. Data and checkpoints live under
+     and save/restore seconds, cli.eval bf16 and int8 over 600 videos
+     with the CLI's examples/s, then cli.infer bf16 and int8 in turns
+     over 21 batches of 256 (videos/s from its own progress lines) beside
+     cli.eval on the same shards. Data and checkpoints live under
      build/chip_smoke_pipeline/ and are removed at the end;
  10. the library yardstick at the four flagship layer shapes on
      full-length sequences: cuDNN's LSTM layer (`torch.nn.LSTM` with the
@@ -77,7 +87,15 @@ kernel's device time alone, the replay of a CUDA graph of one call
      fp16, since this PyTorch gives cuDNN no bf16 RNN) in inference,
      training forward and training backward, beside the port's layer (the
      `x @ Wx` GEMM + `lstm_chunk_scan`; `LstmLayerTrain` forward and
-     backward). The port never calls cuDNN.
+     backward). The port never calls cuDNN;
+ 11. the convergence gate: the port's scripts/acceptance_run.py at its
+     recipe (the flagship in bf16, 30 epochs at batch 128 over 2048
+     learnable videos, 960 global steps, then 512 held-out videos)
+     through cli.train and cli.validate; its bands decide (train GAP >=
+     0.995 by step 700, held-out Hit@1 >= 0.95 and GAP >= 0.74), with the
+     exact train-kernel launch counts. Last, no module of jax, flax,
+     msgpack or the JAX package is loaded and nothing was written into
+     the JAX package's directory.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is {"kernels": [...]}; the last is {"ok": true, "device": {...}}. With no
@@ -86,7 +104,10 @@ CUDA device the script stops before it measures anything.
 
 from __future__ import annotations
 
+import contextlib
 import glob
+import hashlib
+import io
 import json
 import logging
 import math
@@ -102,17 +123,27 @@ import numpy as np
 import torch
 
 from efficientvideoclassification_youtube8m_torch import data as port_data
+from efficientvideoclassification_youtube8m_torch import ensemble
 from efficientvideoclassification_youtube8m_torch.cli import convert as convert_cli
 from efficientvideoclassification_youtube8m_torch.cli import eval as eval_cli
 from efficientvideoclassification_youtube8m_torch.cli import finetune as finetune_cli
+from efficientvideoclassification_youtube8m_torch.cli import flags
+from efficientvideoclassification_youtube8m_torch.cli import hash_check as hash_check_cli
+from efficientvideoclassification_youtube8m_torch.cli import infer as infer_cli
+from efficientvideoclassification_youtube8m_torch.cli import inference_bias as inference_bias_cli
+from efficientvideoclassification_youtube8m_torch.cli import (
+    inspect_checkpoint as inspect_checkpoint_cli,
+)
+from efficientvideoclassification_youtube8m_torch.cli import max_ensemble as max_ensemble_cli
 from efficientvideoclassification_youtube8m_torch.cli import train as train_cli
 from efficientvideoclassification_youtube8m_torch.cli import validate as validate_cli
+from efficientvideoclassification_youtube8m_torch.data import native
 from efficientvideoclassification_youtube8m_torch.metrics.eval_util import (
     train_step_metrics,
 )
 from efficientvideoclassification_youtube8m_torch.ops.kernels import _build
 from efficientvideoclassification_youtube8m_torch.ops.kernels import bounds, layout
-from efficientvideoclassification_youtube8m_torch.ops import quantize
+from efficientvideoclassification_youtube8m_torch.ops import prng, quantize
 from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_scan
 from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_scan_int8
 from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_train
@@ -129,6 +160,7 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
     init_distill_state,
     student_state_from_distill,
 )
+from efficientvideoclassification_youtube8m_torch.scripts import acceptance_run
 from efficientvideoclassification_youtube8m_torch.train.step import (
     build_distill_train_step,
     build_eval_step,
@@ -283,6 +315,12 @@ def phase_card() -> str:
     lstm_train.load_kernel()
     lstm_scan_int8.load_kernel()
     log(f"[1] kernel builds (parallel) + load: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    if native.available():
+        log(f"[1] data parser: native (g++), {native.loaded_path()}, built or loaded "
+            f"in {time.perf_counter() - t0:.3f} s")
+    else:
+        log("[1] data parser: pure Python (the native library did not build)")
     spills = []
     for name in LIBRARIES:
         for line in _build.build_log(name).splitlines():
@@ -389,7 +427,7 @@ def videos_per_s(predictor, feats, nf, repeats=3):
 
 def phase_serving(smi):
     cfg = TrainConfig(compute_dtype="bfloat16")
-    model = init_model(cfg, torch.Generator().manual_seed(0), device="cuda")
+    model = init_model(cfg, prng.prng_key(0), device="cuda")
     kernel_p = Predictor(cfg, model, serve_batch=SERVE_BATCH, device="cuda")
     plain_p = Predictor(cfg.replace(use_pallas_inference=False), model,
                         serve_batch=SERVE_BATCH, device="cuda")
@@ -625,7 +663,7 @@ def phase_distill(smi):
     cfg = TrainConfig(compute_dtype="bfloat16")
     B = cfg.batch_size
     opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
-    state = init_distill_state(cfg, opt, torch.Generator().manual_seed(0),
+    state = init_distill_state(cfg, opt, prng.prng_key(0),
                                device="cuda")
     batch = distill_batch(cfg, B, seed=6)
     per_tower = 2 * cfg.lstm_layers  # train kernel launches of each kind
@@ -882,7 +920,7 @@ def check_eval_outputs(out, labels, num_classes, what):
 
 def phase_int8_serving(smi):
     cfg = TrainConfig(compute_dtype="bfloat16")
-    model = init_model(cfg, torch.Generator().manual_seed(0), device="cuda")
+    model = init_model(cfg, prng.prng_key(0), device="cuda")
     int8_p = Predictor(cfg, model, serve_batch=SERVE_BATCH, device="cuda",
                        quantize="int8")
     plain_p = Predictor(cfg.replace(use_pallas_inference=False), model,
@@ -976,7 +1014,7 @@ def phase_routing():
     losses and gradients through the train kernels against the plain
     path."""
     cfg = TrainConfig(compute_dtype="bfloat16", lstm_cells=ODD_CELLS)
-    model = init_model(cfg, torch.Generator().manual_seed(3), device="cuda")
+    model = init_model(cfg, prng.prng_key(3), device="cuda")
     feats, nf = next(requests((64,), cfg, seed=9))
     levels = 2 * cfg.lstm_layers
     for quant, kernel in (("none", "lstm_chunk_scan"), ("int8", "lstm_chunk_scan_int8")):
@@ -1001,7 +1039,7 @@ def phase_routing():
 
     cfg = cfg.replace(batch_size=32)
     opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
-    state = init_distill_state(cfg, opt, torch.Generator().manual_seed(4), device="cuda")
+    state = init_distill_state(cfg, opt, prng.prng_key(4), device="cuda")
     batch = distill_batch(cfg, cfg.batch_size, seed=10)
     before = train_counts()
     k_ls, _, k_gt, k_gs = distill_loss_and_grads(cfg, state, *batch)
@@ -1258,6 +1296,169 @@ def phase_pipeline_fidelity(root: str):
             {kernel: levels * batches})
     check_epochs(runs["none"], runs["int8"], batches, "9a eval")
     log("[9] 9a stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+    return {"data_dir": data_dir, "eval_pattern": eval_pattern, "trained": trained,
+            "finetune_dir": finetune_dir, "batches": batches}
+
+
+# 9c: the inference binaries on 9a's finetuned student and validate shards.
+# cli.infer's rows against format_lines of Predictor.from_checkpoint on the
+# same videos: the same forward in other calls, so probabilities within
+# 1e-5 (the CSV prints 6 decimals) and the same classes wherever
+# neighbouring probabilities are more than 1e-5 apart. int8 rows against
+# bf16 rows at PERF.md section 2's prediction bar.
+TOL_CSV = 1e-5
+TOL_INT8_PREDICTIONS = 1e-3
+INFER_LINE_RE = re.compile(r"num examples processed: (\d+) elapsed seconds: ([\d.]+)")
+
+
+def read_csv(path: str):
+    """[(video_id, [(class, prob), ...])] of a Kaggle CSV, in file order."""
+    with open(path) as f:
+        header, *lines = f.read().splitlines()
+    if header != "VideoId,LabelConfidencePairs":
+        raise AssertionError(f"{path}: header {header!r}")
+    rows = []
+    for line in lines:
+        vid, pairs = line.split(",", 1)
+        tokens = pairs.split(" ")
+        rows.append((vid, [(int(c), float(p)) for c, p in zip(tokens[0::2], tokens[1::2])]))
+    return rows
+
+
+def check_csv_shape(path: str, video_ids, top_k: int, what: str):
+    rows = read_csv(path)
+    if [vid for vid, _ in rows] != list(video_ids):
+        raise AssertionError(f"{what}: the CSV's videos are not the shards' in order")
+    if any(len(pairs) != top_k for _, pairs in rows):
+        raise AssertionError(f"{what}: a row without {top_k} pairs")
+    return rows
+
+
+def check_rows_against_predictor(rows, probs, top_k: int) -> float:
+    """cli.infer's rows against the Predictor's probabilities of the same
+    videos. Returns the largest probability difference."""
+    worst = 0.0
+    for (vid, pairs), p in zip(rows, probs):
+        order = np.argsort(-p, kind="stable")[:top_k + 1]
+        want = p[order].astype(np.float64)
+        got = np.array([prob for _, prob in pairs])
+        worst = max(worst, float(np.abs(got - want[:top_k]).max()))
+        for r, (cls, _) in enumerate(pairs):
+            apart = [abs(want[r] - want[q]) for q in (r - 1, r + 1) if 0 <= q <= top_k]
+            if min(apart) > TOL_CSV and cls != int(order[r]):
+                raise AssertionError(f"{vid}: rank {r} is class {cls}, the Predictor's "
+                                     f"{int(order[r])}")
+    if worst > TOL_CSV:
+        raise AssertionError(f"cli.infer's probabilities differ from the Predictor's by {worst}")
+    return worst
+
+
+def check_int8_rows(bf16_rows, int8_rows) -> float:
+    """Each class in both rows within TOL_INT8_PREDICTIONS; a class in one
+    row only sits within that bar of the other row's last probability."""
+    worst = 0.0
+    for (vid, a), (_, b) in zip(bf16_rows, int8_rows):
+        da, db = dict(a), dict(b)
+        for c in set(da) | set(db):
+            if c in da and c in db:
+                diff = abs(da[c] - db[c])
+            else:
+                mine, other = (da[c], b) if c in da else (db[c], a)
+                diff = max(0.0, mine - other[-1][1])
+            worst = max(worst, diff)
+    if worst > TOL_INT8_PREDICTIONS:
+        raise AssertionError(f"int8 and bf16 CSVs differ by {worst}")
+    return worst
+
+
+def to_string(main_fn, out: io.StringIO):
+    """`main_fn` with its standard output written to `out`."""
+
+    def call(argv):
+        with contextlib.redirect_stdout(out):
+            return main_fn(argv)
+
+    return call
+
+
+def phase_pipeline_infer(root: str, fidelity: dict):
+    """9c: cli.infer bf16 and int8, cli.inference_bias, cli.max_ensemble,
+    cli.inspect_checkpoint and cli.hash_check."""
+    finetune_dir, eval_pattern = fidelity["finetune_dir"], fidelity["eval_pattern"]
+    cfg = flags.config_from_args(flags.base_parser("").parse_args(FIDELITY_FLAGS))
+    levels, batches, top_k = 2 * cfg.lstm_layers, fidelity["batches"], cfg.top_k
+    loader = port_data.FrameDataLoader(
+        eval_pattern, batch_size=FIDELITY_VIDEOS, feature_names=cfg.feature_names_list,
+        feature_sizes=cfg.feature_sizes_list, max_frames=cfg.max_num_frames,
+        vocab_size=cfg.num_classes, num_epochs=1, shuffle=False)
+    (batch,) = list(loader)
+    argv = FIDELITY_FLAGS + ["--train_dir", finetune_dir, "--input_data_pattern", eval_pattern]
+    csv = {name: os.path.join(root, f"pred_{name}.csv") for name in ("bf16", "int8", "bias")}
+    for name, quant, kernel in (("bf16", "none", "lstm_chunk_scan"),
+                                ("int8", "int8", "lstm_chunk_scan_int8")):
+        run_binary(f"9c infer --quantize {quant}", infer_cli.main,
+                   argv + ["--output_file", csv[name], "--quantize", quant],
+                   {kernel: levels * batches})
+    run_binary("9c inference_bias", inference_bias_cli.main,
+               argv + ["--output_file", csv["bias"], "--tensor_name",
+                       "classifier/experts/b", "--alpha_bias", "2"],
+               {"lstm_chunk_scan": levels * batches})
+    rows = {name: check_csv_shape(path, batch.video_ids, top_k, f"9c {name}")
+            for name, path in csv.items()}
+    predictor = Predictor.from_checkpoint(finetune_dir, cfg, serve_batch=cfg.batch_size,
+                                          device="cuda")
+    probs = predictor.predict(batch.features, batch.num_frames)
+    del predictor
+    want = list(ensemble.format_lines(batch.video_ids, probs, top_k))
+    worst = check_rows_against_predictor(rows["bf16"], probs, top_k)
+    same = sum(line == w for line, w in zip(open(csv["bf16"]).read().splitlines()[1:],
+                                              (w.rstrip("\n") for w in want)))
+    int8_worst = check_int8_rows(rows["bf16"], rows["int8"])
+    moved = max(abs(p - q) for (_, a), (_, b) in zip(rows["bf16"], rows["bias"])
+                for (_, p), (_, q) in zip(a, b))
+    log(f"[9] 9c cli.infer bf16 against format_lines(Predictor.predict) of the same "
+        f"{len(probs)} videos: max|diff| {worst:.3g} (tolerance {TOL_CSV}), {same} of "
+        f"{len(want)} rows byte-equal; int8 against bf16 max|diff| {int8_worst:.3g} "
+        f"(tolerance {TOL_INT8_PREDICTIONS}); inference_bias (alpha 2) moved the "
+        f"probabilities by up to {moved:.3g}")
+
+    merged = os.path.join(root, "ensemble.csv")
+    run_binary("9c max_ensemble", max_ensemble_cli.main, [
+        "--preds_pattern", os.path.join(root, "pred_*.csv"), "--output_file", merged,
+        "--num_classes", str(cfg.num_classes), "--top_k", str(top_k)], {})
+    inputs = [dict(pairs) for name in ("bf16", "bias", "int8") for _, pairs in rows[name]]
+    for i, (vid, pairs) in enumerate(check_csv_shape(merged, batch.video_ids, top_k,
+                                                     "9c max_ensemble")):
+        for c, p in pairs:
+            best = max(d.get(c, 0.0) for d in inputs[i::len(rows["bf16"])])
+            if abs(p - best) > 1e-6:
+                raise AssertionError(f"max_ensemble {vid} class {c}: {p}, max {best}")
+
+    out = io.StringIO()
+    run_binary("9c inspect_checkpoint", to_string(inspect_checkpoint_cli.main, out),
+               ["--file_name", fidelity["trained"]], {})
+    listed = [line for line in out.getvalue().splitlines() if line.startswith("tensor_name: ")]
+    leaves = flat_leaves(msgpack_io.load(fidelity["trained"]))
+    if len(listed) != len(leaves):
+        raise AssertionError(f"inspect_checkpoint listed {len(listed)} of {len(leaves)} leaves")
+
+    shard = sorted(glob.glob(eval_pattern))[0]
+    manifests = {}
+    for name, digest in (("good", hashlib.md5(open(shard, "rb").read()).hexdigest()),
+                         ("bad", "0" * 32)):
+        manifests[name] = os.path.join(root, f"manifest_{name}.json")
+        with open(manifests[name], "w") as f:
+            json.dump({os.path.basename(shard): digest}, f)
+    codes = {name: run_binary(f"9c hash_check ({name} manifest)",
+                              to_string(hash_check_cli.main, io.StringIO()),
+                              ["--manifest", path, "--data_dir", os.path.dirname(shard)],
+                              {})[0]
+             for name, path in manifests.items()}
+    if codes != {"good": 0, "bad": 1}:
+        raise AssertionError(f"hash_check returned {codes}")
+    log(f"[9] 9c max_ensemble rows are the per-class max of the three CSVs; "
+        f"inspect_checkpoint listed all {len(leaves)} leaves; hash_check 0 on the "
+        f"shard's md5, 1 on a wrong one")
 
 
 def phase_pipeline_scale(root: str, smi: str, step_rate: float):
@@ -1310,7 +1511,7 @@ def phase_pipeline_scale(root: str, smi: str, step_rate: float):
         saver.wait()
         times.append((returned, time.perf_counter() - t0))
     opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
-    template = init_distill_state(cfg, opt, torch.Generator().manual_seed(1), device="cuda")
+    template = init_distill_state(cfg, opt, prng.prng_key(1), device="cuda")
     t0 = time.perf_counter()
     checkpoint.restore_checkpoint(path, template)
     torch.cuda.synchronize()
@@ -1347,6 +1548,7 @@ def phase_pipeline_scale(root: str, smi: str, step_rate: float):
         "the last padded), in turns bf16, int8, int8, bf16: the CLI's examples/s "
         f"bf16 {rates['none'][0]:.1f} and {rates['none'][1]:.1f}, int8 "
         f"{rates['int8'][0]:.1f} and {rates['int8'][1]:.1f} ({smi})")
+    infer_rates(root, data_dir, train_dir, smi, levels)
     log("[9] 9b stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
 
     serve_cfg = TrainConfig(compute_dtype="bfloat16")
@@ -1368,12 +1570,64 @@ def phase_pipeline_scale(root: str, smi: str, step_rate: float):
             f"{levels} kernel launches, predictions finite in [0, 1]")
 
 
+# cli.infer's rate: 20 batches of 256, the 4 eval shards of 9b (600 videos)
+# linked in turn until they hold 5120 (duplicate ids are rows like any other)
+INFER_BATCHES = 20
+
+
+def infer_rates(root: str, data_dir: str, train_dir: str, smi: str, levels: int):
+    """cli.infer bf16 and int8 in turns over INFER_BATCHES batches of 256 of
+    9b's student, each rate from its own "num examples processed" lines,
+    and cli.eval bf16 over the same shards beside them."""
+    infer_dir = os.path.join(root, "infer")
+    os.makedirs(infer_dir)
+    shards = sorted(glob.glob(os.path.join(data_dir, "validate*.tfrecord")))
+    B = TrainConfig().batch_size
+    videos, i = 0, 0
+    while videos < INFER_BATCHES * B:
+        os.symlink(shards[i % len(shards)], os.path.join(infer_dir, f"test-{i:04d}.tfrecord"))
+        videos += SCALE_EVAL // SHARDS
+        i += 1
+    batches = math.ceil(videos / B)
+    pattern = os.path.join(infer_dir, "test-*.tfrecord")
+    kernels = {"none": "lstm_chunk_scan", "int8": "lstm_chunk_scan_int8"}
+    rates = {"none": [], "int8": []}
+    for quant in ("none", "int8", "int8", "none"):
+        out = os.path.join(infer_dir, f"pred_{quant}.csv")
+        with LogCapture("infer", INFER_LINE_RE) as capture:
+            run_binary(f"9b infer --quantize {quant}", infer_cli.main, [
+                "--train_dir", train_dir, "--input_data_pattern", pattern,
+                "--output_file", out, "--quantize", quant],
+                {kernels[quant]: levels * batches})
+        done = [(int(n), float(t)) for n, t in capture.matches]
+        if len(done) != batches or done[-1][0] != videos:
+            raise AssertionError(f"cli.infer logged {done[-1:]} of {len(done)} batches")
+        with open(out) as f:
+            if sum(1 for _ in f) != videos + 1:
+                raise AssertionError("cli.infer wrote another number of rows")
+        # all videos over the last line's time, and the batches after the
+        # first over the time after it (the first holds the warm-up)
+        rates[quant].append((videos / done[-1][1],
+                             (videos - done[0][0]) / (done[-1][1] - done[0][1])))
+    with LogCapture("eval", EVAL_RATE_RE) as capture:
+        run_binary("9b eval --quantize none (the infer shards)", eval_cli.main, [
+            "--train_dir", train_dir, "--run_once", "true", "--eval_data_pattern", pattern],
+            {"lstm_chunk_scan": levels * batches})
+    (eval_rate,) = [float(m[0]) for m in capture.matches]
+    log(f"[9] 9b cli.infer batch {B}, {videos} videos ({batches} batches), in turns "
+        "bf16, int8, int8, bf16, videos/s (all, after the first batch): bf16 "
+        + ", ".join(f"{a:.1f} ({b:.1f})" for a, b in rates["none"]) + "; int8 "
+        + ", ".join(f"{a:.1f} ({b:.1f})" for a, b in rates["int8"])
+        + f"; cli.eval bf16 on the same shards {eval_rate:.1f} examples/s ({smi})")
+
+
 def phase_pipeline(smi: str, step_rate: float) -> None:
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke_pipeline")
     shutil.rmtree(root, ignore_errors=True)
     try:
-        phase_pipeline_fidelity(root)
+        fidelity = phase_pipeline_fidelity(root)
+        phase_pipeline_infer(root, fidelity)
         phase_pipeline_scale(root, smi, step_rate)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1482,11 +1736,67 @@ def phase_library(smi):
     return library
 
 
+# ------------------------------------------ phase 11: the convergence gate
+#
+# The port's scripts/acceptance_run.py at its recipe (the flagship in bf16,
+# 30 epochs at batch 128 over 2048 learnable videos, then the held-out
+# 512) through cli.train and cli.validate on the card; its bands decide.
+
+
+def phase_gate(smi: str) -> None:
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_gate")
+    shutil.rmtree(workdir, ignore_errors=True)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        result = acceptance_run.run(workdir, device="cuda")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    epoch = result["epoch"]
+    steps = result["steps"]
+    log(f"[11] gate: train GAP >= {acceptance_run.CONVERGED_GAP} first at step "
+        f"{result['first_converged_step']}; last logged {result['last']} of "
+        f"{len(steps)} logged steps; held-out student Hit@1 {epoch.get('avg_hit_at_one'):.4f}, "
+        f"PERR {epoch.get('avg_perr'):.4f}, GAP {epoch.get('gap'):.4f}, mAP "
+        f"{result['map']:.4f}; trajectory sha1 {result['trajectory_sha1']} "
+        f"({result['trajectory_steps']} steps); launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items())
+        + f"; wall {wall:.1f} s (" + ", ".join(
+            f"{k} {v:.1f} s" for k, v in result["seconds"].items()) + f") ({smi})")
+    batches = acceptance_run.NUM_EPOCHS * acceptance_run.TRAIN_VIDEOS // 128
+    levels = 4  # wrapper calls per tower forward: 2 levels x 2 layers
+    want = {"lstm_train_fwd": 2 * levels * batches, "lstm_train_bwd": 2 * levels * batches,
+            "lstm_chunk_scan": 2 * levels * acceptance_run.HELDOUT_VIDEOS // 128,
+            "lstm_chunk_scan_int8": 0}
+    if counts != want:
+        raise AssertionError(f"gate: kernel launches {counts}, expected {want}")
+    if steps != list(range(2, 2 * batches + 1, 2)):
+        raise AssertionError(f"gate: logged steps {steps[:3]}..{steps[-3:]} ({len(steps)})")
+    acceptance_run.check_bands(result)
+    log("[11] acceptance bands: OK")
+
+
+def jax_package_files():
+    """The files under the JAX package's directory (beside this script),
+    or None where there is none."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "efficientvideoclassification_youtube8m_tpu")
+    if not os.path.isdir(root):
+        return None
+    return sorted(os.path.join(d, f) for d, _, files in os.walk(root) for f in files)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
+    jax_files = jax_package_files()
     smi = phase_card()
     worst, times = phase_kernel()
     launches = phase_serving(smi)
@@ -1497,8 +1807,15 @@ def main() -> None:
     phase_routing()
     phase_pipeline(smi, step_rate)
     library = phase_library(smi)["student_L1"]
-    if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack") for m in sys.modules):
-        raise AssertionError("the port imported jax, flax or msgpack")
+    phase_gate(smi)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "msgpack", "efficientvideoclassification_youtube8m_tpu"))
+    if loaded:
+        raise AssertionError(f"the port imported {loaded}")
+    if jax_package_files() != jax_files:
+        raise AssertionError("the run wrote into the JAX package's directory")
+    log("[11] no module of jax, flax, msgpack or the JAX package loaded; nothing "
+        "written into the JAX package's directory")
     # The line's times are at student_L1 (T=6, B=1280, H=1024), the
     # student's first layer at batch 256. "ms" and "plain_ms" are eager
     # calls, "graph_ms" the kernel's graph replay. library_ms is cuDNN's

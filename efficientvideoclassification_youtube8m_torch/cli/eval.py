@@ -51,7 +51,7 @@ def evaluate(args):
     if not args.frame_features:
         raise NotImplementedError(
             "--frame_features=False (video-level models on aggregated "
-            "Examples) is not ported yet (ROADMAP Queue 1 item 12)")
+            "Examples) is not ported yet (ROADMAP Queue 1, the model zoo and losses)")
     flags_lib.resolve_steps_per_dispatch(args, logger=logger)
     device = flags_lib.resolve_device(args)
     # parameters only: the optimizer slots are neither allocated nor read
@@ -91,8 +91,8 @@ def main(argv=None):
                         "(ops/quantize.py), the deploy-gate accuracy check")
     parser.add_argument("--steps_per_dispatch", type=int, default=0,
                         help="0 = auto (1 off the TPU) or 1: one batch per "
-                        "launch; K > 1 is not ported (ROADMAP Queue 1 "
-                        "item 9)")
+                        "launch; K > 1 is not ported (ROADMAP Queue 1, "
+                        "the host paths of the binaries)")
     args = parser.parse_args(argv)
     flags_lib.dump_flags(args, logger)
     return evaluate(args)

@@ -15,10 +15,9 @@ import logging
 import sys
 import time
 
-import torch
-
 from efficientvideoclassification_youtube8m_torch.cli import flags as flags_lib
 from efficientvideoclassification_youtube8m_torch.cli.loop import run_training_loop
+from efficientvideoclassification_youtube8m_torch.ops import prng
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
 from efficientvideoclassification_youtube8m_torch.train.checkpoint import (
     AsyncCheckpointSaver,
@@ -34,7 +33,7 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
 from efficientvideoclassification_youtube8m_torch.train.step import build_finetune_step
 from efficientvideoclassification_youtube8m_torch.utils import summary as summary_lib
 from efficientvideoclassification_youtube8m_torch.data import FrameDataLoader
-from efficientvideoclassification_youtube8m_tpu.metrics import train_step_metrics
+from efficientvideoclassification_youtube8m_torch.metrics import train_step_metrics
 
 logger = logging.getLogger("finetune")
 
@@ -46,7 +45,7 @@ def finetune(args):
     if not args.frame_features:
         raise NotImplementedError(
             "--frame_features=False (video-level models on aggregated "
-            "Examples) is not ported yet (ROADMAP Queue 1 item 12)")
+            "Examples) is not ported yet (ROADMAP Queue 1, the model zoo and losses)")
     device = flags_lib.resolve_device(args)
     optimizer = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
     ckpt = None if args.start_new_model else latest_checkpoint(cfg.train_dir)
@@ -59,10 +58,8 @@ def finetune(args):
                       "convert first, or pass --start_new_model to train "
                       "from scratch")
     # the student of a fresh distill state (`init_distill_state`): drawn
-    # from the seeded generator after the teacher
-    generator = torch.Generator().manual_seed(cfg.seed)
-    init_model(cfg, generator)
-    student = init_model(cfg, generator, device)
+    # from the second half of split(PRNGKey(seed))
+    student = init_model(cfg, prng.split(prng.prng_key(cfg.seed))[1], device)
     state = StudentState(student=student,
                          opt_student=optimizer.init(params_of(student)),
                          global_step=0, dropout_keep_prob=cfg.dropout)

@@ -30,7 +30,7 @@ from efficientvideoclassification_youtube8m_torch.train.step import (
 )
 from efficientvideoclassification_youtube8m_torch.utils import summary as summary_lib
 from efficientvideoclassification_youtube8m_torch.data import FrameDataLoader
-from efficientvideoclassification_youtube8m_tpu.metrics import train_step_metrics
+from efficientvideoclassification_youtube8m_torch.metrics import train_step_metrics
 
 logger = logging.getLogger("train")
 TASK = "/job:master/task:0"  # the reference's task prefix (train.py:528-533)

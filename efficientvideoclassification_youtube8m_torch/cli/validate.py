@@ -29,7 +29,7 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
 from efficientvideoclassification_youtube8m_torch.train.step import build_validate_step
 from efficientvideoclassification_youtube8m_torch.utils import summary as summary_lib
 from efficientvideoclassification_youtube8m_torch.data import FrameDataLoader
-from efficientvideoclassification_youtube8m_tpu.metrics import EvaluationMetrics
+from efficientvideoclassification_youtube8m_torch.metrics import EvaluationMetrics
 
 logger = logging.getLogger("validate")
 
@@ -162,8 +162,8 @@ def main(argv=None):
     parser = flags_lib.base_parser("Validate the student on YT8M (GPU)")
     parser.add_argument("--steps_per_dispatch", type=int, default=0,
                         help="0 = auto (1 off the TPU) or 1: one batch per "
-                        "launch; K > 1 is not ported (ROADMAP Queue 1 "
-                        "item 9)")
+                        "launch; K > 1 is not ported (ROADMAP Queue 1, "
+                        "the host paths of the binaries)")
     args = parser.parse_args(argv)
     flags_lib.dump_flags(args, logger)
     return evaluate(args)

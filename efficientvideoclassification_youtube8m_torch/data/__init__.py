@@ -1,15 +1,38 @@
 """The data plane: TFRecord shards of YouTube-8M SequenceExamples, their
-parsers (the native C++ one where it builds) and the batching loaders.
-It does not import jax and is the JAX package's, re-exported, not copied."""
+parsers (the native C++ one where it builds, data/native) and the
+batching loaders. A copy of the JAX package's data/: the same bytes
+written and the same batches read."""
 
-from efficientvideoclassification_youtube8m_tpu.data import (  # noqa: F401
+from efficientvideoclassification_youtube8m_torch.data.loader import (
     FrameBatch,
     FrameDataLoader,
+)
+from efficientvideoclassification_youtube8m_torch.data.proto import iter_fields
+from efficientvideoclassification_youtube8m_torch.data.tfrecord import (
     TFRecordReader,
     TFRecordWriter,
+    crc32c,
+    masked_crc32c,
+)
+from efficientvideoclassification_youtube8m_torch.data.yt8m import (
+    FrameVideo,
     encode_frame_record,
+    parse_frame_record,
+    read_frame_file,
     write_synthetic_frame_shard,
 )
-from efficientvideoclassification_youtube8m_tpu.data.proto import (  # noqa: F401
-    iter_fields,
-)
+
+__all__ = [
+    "FrameBatch",
+    "FrameDataLoader",
+    "TFRecordReader",
+    "TFRecordWriter",
+    "crc32c",
+    "masked_crc32c",
+    "FrameVideo",
+    "encode_frame_record",
+    "iter_fields",
+    "parse_frame_record",
+    "read_frame_file",
+    "write_synthetic_frame_shard",
+]

@@ -15,7 +15,7 @@ import torch
 
 LOSS_REGISTRY: Dict[str, Callable] = {}
 
-# registered in the JAX package, not ported yet (ROADMAP Queue 1 item 12)
+# registered in the JAX package, not ported yet (ROADMAP Queue 1, the model zoo and losses)
 _NOT_PORTED = (
     "CrossEntropyLossWithSparsity", "CrossEntropyLossTop50", "PWELoss",
     "CrossEntropyLossClassImbalance", "CrossEntropyLossPositives", "NewLoss",
@@ -34,7 +34,7 @@ def register_loss(name: str):
 def get_loss(name: str) -> Callable:
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"the loss {name!r} is not ported yet (ROADMAP Queue 1 item 12)")
+            f"the loss {name!r} is not ported yet (ROADMAP Queue 1, the model zoo and losses)")
     try:
         return LOSS_REGISTRY[name]
     except KeyError:

@@ -14,6 +14,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from efficientvideoclassification_youtube8m_torch.ops import prng
+
 MODEL_REGISTRY: Dict[str, Any] = {}
 
 
@@ -35,14 +37,14 @@ def get_model(name: str):
         ) from None
 
 
-def glorot_uniform(shape, generator: Optional[torch.Generator] = None,
-                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def glorot_uniform(shape, key: Optional[prng.Key] = None,
+                   device=None) -> torch.Tensor:
     """slim.fully_connected's default weight init (uniform Xavier) over
-    the 2-D fan-in/fan-out ``shape[0], shape[1]``."""
+    the 2-D fan-in/fan-out ``shape[0], shape[1]``, drawn from `key` as
+    the JAX `glorot_uniform` draws it (key (0, 0) when None)."""
     fan_in, fan_out = shape[0], shape[1]
     limit = math.sqrt(6.0 / (fan_in + fan_out))
-    return torch.empty(shape, dtype=dtype).uniform_(-limit, limit,
-                                                    generator=generator)
+    return prng.uniform(key or prng.prng_key(0), shape, -limit, limit, device)
 
 
 def dense(w: torch.Tensor, x: torch.Tensor, b: Optional[torch.Tensor] = None

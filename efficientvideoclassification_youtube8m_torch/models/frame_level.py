@@ -20,6 +20,7 @@ from efficientvideoclassification_youtube8m_torch.models.base import (
     get_model,
     register_model,
 )
+from efficientvideoclassification_youtube8m_torch.ops import prng
 from efficientvideoclassification_youtube8m_torch.ops.kernels.lstm_scan import (
     multi_lstm_scan_fused,
 )
@@ -49,17 +50,18 @@ class HierarchicalLstmModel(nn.Module):
                  lstm_cells: int = 1024, lstm_layers: int = 2,
                  classifier: str = "MoeModel",
                  classifier_kwargs: Optional[dict] = None,
-                 generator: Optional[torch.Generator] = None, device=None,
+                 key: Optional[prng.Key] = None, device=None,
                  **_):
         super().__init__()
         state_dim = lstm_layers * 2 * lstm_cells
         self.vocab_size = vocab_size
-        self.rnn_l1 = init_multi_lstm(generator, input_size, lstm_cells,
+        k1, k2, k3 = prng.split(key or prng.prng_key(0), 3)
+        self.rnn_l1 = init_multi_lstm(k1, input_size, lstm_cells,
                                       lstm_layers, device)
-        self.rnn_l2 = init_multi_lstm(generator, state_dim, lstm_cells,
+        self.rnn_l2 = init_multi_lstm(k2, state_dim, lstm_cells,
                                       lstm_layers, device)
         self.classifier = get_model(classifier)(
-            state_dim, vocab_size, generator=generator, device=device,
+            state_dim, vocab_size, key=k3, device=device,
             **(classifier_kwargs or {}))
 
     def forward(self, model_input: torch.Tensor,  # [B, T, D]

@@ -14,6 +14,7 @@ from efficientvideoclassification_youtube8m_torch.models.base import (
     l2_loss,
     register_model,
 )
+from efficientvideoclassification_youtube8m_torch.ops import prng
 
 
 class _Weights(nn.Module):
@@ -39,21 +40,23 @@ class MoeModel(nn.Module):
 
     def __init__(self, input_size: int, vocab_size: int,
                  num_mixtures: int = 2,
-                 generator: Optional[torch.Generator] = None, device=None,
+                 key: Optional[prng.Key] = None, device=None,
                  **_):
         super().__init__()
         self.vocab_size = vocab_size
         self.num_mixtures = num_mixtures
-        # glorot fan-in/out of the reference's 2-D [D, V*K] layout
+        # the JAX init's keys; glorot fan-in/out of the reference's 2-D
+        # [D, V*K] layout
+        kg, ke = prng.split(key or prng.prng_key(0))
         gates_w = glorot_uniform(
-            (input_size, vocab_size * (num_mixtures + 1)), generator
+            (input_size, vocab_size * (num_mixtures + 1)), kg, device
         ).reshape(input_size, num_mixtures + 1, vocab_size)
         experts_w = glorot_uniform(
-            (input_size, vocab_size * num_mixtures), generator
+            (input_size, vocab_size * num_mixtures), ke, device
         ).reshape(input_size, num_mixtures, vocab_size)
-        self.gates = _Weights(w=gates_w.to(device))
+        self.gates = _Weights(w=gates_w)
         self.experts = _Weights(
-            w=experts_w.to(device),
+            w=experts_w,
             b=torch.zeros(num_mixtures, vocab_size, device=device))
 
     def forward(self, model_input: torch.Tensor, l2_penalty: float = 1e-8,

@@ -24,40 +24,46 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from efficientvideoclassification_youtube8m_torch.ops import prng
+
 
 class BasicLSTMCell(nn.Module):
     """Parameters of one cell in the JAX (and TF) layout:
     ``kernel [input_size + num_units, 4 * num_units]``, ``bias [4 * num_units]``.
-    Glorot-uniform kernel (TF1.3 `_linear` default), zero bias."""
+    Glorot-uniform kernel (TF1.3 `_linear` default) drawn from `key` as
+    the JAX `init_basic_lstm_cell` draws it (key (0, 0) when None), zero
+    bias."""
 
     def __init__(self, input_size: int, num_units: int,
-                 generator: Optional[torch.Generator] = None,
+                 key: Optional[prng.Key] = None,
                  device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         fan_in = input_size + num_units
         fan_out = 4 * num_units
         limit = math.sqrt(6.0 / (fan_in + fan_out))
-        kernel = torch.empty(fan_in, fan_out, dtype=torch.float32)
-        kernel.uniform_(-limit, limit, generator=generator)
-        self.kernel = nn.Parameter(kernel.to(device=device, dtype=dtype))
+        kernel = prng.uniform(key or prng.prng_key(0), (fan_in, fan_out),
+                              -limit, limit, device)
+        self.kernel = nn.Parameter(kernel.to(dtype))
         self.bias = nn.Parameter(
             torch.zeros(fan_out, device=device, dtype=dtype))
 
 
-def init_basic_lstm_cell(generator: Optional[torch.Generator],
-                         input_size: int, num_units: int, device=None,
+def init_basic_lstm_cell(key: Optional[prng.Key], input_size: int,
+                         num_units: int, device=None,
                          dtype: torch.dtype = torch.float32) -> BasicLSTMCell:
-    return BasicLSTMCell(input_size, num_units, generator, device, dtype)
+    return BasicLSTMCell(input_size, num_units, key, device, dtype)
 
 
-def init_multi_lstm(generator: Optional[torch.Generator], input_size: int,
+def init_multi_lstm(key: Optional[prng.Key], input_size: int,
                     num_units: int, num_layers: int, device=None,
                     dtype: torch.dtype = torch.float32) -> nn.ModuleList:
-    """Stack of cells; layer 0 consumes the input, deeper layers consume h."""
+    """Stack of cells; layer 0 consumes the input, deeper layers consume h.
+    Layer i is drawn from the i-th key of `split(key, num_layers)`."""
+    keys = prng.split(key or prng.prng_key(0), num_layers)
     sizes = [input_size] + [num_units] * (num_layers - 1)
     return nn.ModuleList(
-        init_basic_lstm_cell(generator, s, num_units, device, dtype)
-        for s in sizes)
+        init_basic_lstm_cell(k, s, num_units, device, dtype)
+        for k, s in zip(keys, sizes))
 
 
 def lstm_cell_step(params: BasicLSTMCell, x: torch.Tensor, c: torch.Tensor,

@@ -2,7 +2,7 @@
 (which imports jax, so it is ported, not imported): the multi-host guard,
 the eval loops' host-pack decoding (`unpack_host_pack`) and their
 per-batch row assembly (`gather_eval_rows`, `gather_step_outputs`).
-Multi-host runs are ROADMAP Queue 1 item 13.
+Multi-host runs are ROADMAP Queue 1, parallel and orbax.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def initialize() -> None:
     if _tf_config_processes() > 1 or "JAX_COORDINATOR_ADDRESS" in os.environ:
         raise NotImplementedError(
             "multi-host runs (a TF_CONFIG cluster or JAX_COORDINATOR_ADDRESS) "
-            "come with the parallel port (ROADMAP Queue 1 item 13)")
+            "come with the parallel port (ROADMAP Queue 1, parallel and orbax)")
 
 
 def _paired_k(m: int):

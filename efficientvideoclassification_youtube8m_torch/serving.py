@@ -50,7 +50,7 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
     init_model,
 )
 from efficientvideoclassification_youtube8m_torch.weights import load_jax_params
-from efficientvideoclassification_youtube8m_tpu.utils.config import TrainConfig
+from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
 
 
 class Predictor:
@@ -65,11 +65,11 @@ class Predictor:
         if sequence_parallel:
             raise NotImplementedError(
                 "sequence-parallel serving comes with the parallel port "
-                "(ROADMAP Queue 1 item 13)")
+                "(ROADMAP Queue 1, parallel and orbax)")
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel serving comes with the parallel port "
-                "(ROADMAP Queue 1 item 13)")
+                "(ROADMAP Queue 1, parallel and orbax)")
         self.cfg = cfg
         self.tower = tower
         self.serve_batch = serve_batch

@@ -28,7 +28,7 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
     load_state_tree,
     state_tree,
 )
-from efficientvideoclassification_youtube8m_tpu.data.tf_checkpoint import (
+from efficientvideoclassification_youtube8m_torch.data.tf_checkpoint import (
     is_tf_checkpoint,
     latest_tf_checkpoint,
 )
@@ -40,7 +40,7 @@ _PREFIX = "model.ckpt"
 def _check_backend(backend: str) -> None:
     if backend == "orbax":
         raise NotImplementedError(
-            "orbax checkpoints are not ported yet (ROADMAP Queue 1 item 13); "
+            "orbax checkpoints are not ported yet (ROADMAP Queue 1, parallel and orbax); "
             "use --checkpoint_format msgpack")
     if backend != "msgpack":
         raise ValueError(f"unknown checkpoint backend {backend!r}")
@@ -225,11 +225,11 @@ def read_checkpoint(path: str) -> Any:
     if is_tf_checkpoint(path):
         raise NotImplementedError(
             f"{path} is a TF-V2 bundle of the reference; importing those is "
-            "the TF-V2 remainder of ROADMAP Queue 1 item 8")
+            "ROADMAP Queue 1, checkpoint interop")
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is an orbax checkpoint; orbax is not ported yet "
-            "(ROADMAP Queue 1 item 13)")
+            "(ROADMAP Queue 1, parallel and orbax)")
     return msgpack_io.load(path)
 
 

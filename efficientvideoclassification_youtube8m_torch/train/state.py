@@ -18,21 +18,22 @@ import torch
 from torch import nn
 
 from efficientvideoclassification_youtube8m_torch.models import get_model
+from efficientvideoclassification_youtube8m_torch.ops import prng
 from efficientvideoclassification_youtube8m_torch.train.optimizer import Optimizer
 from efficientvideoclassification_youtube8m_torch.weights import load_jax_params
-from efficientvideoclassification_youtube8m_tpu.utils.config import TrainConfig
+from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
 
 
-def init_model(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
+def init_model(cfg: TrainConfig, key: Optional[prng.Key] = None,
                device=None) -> nn.Module:
-    """`cfg.model` at the config's sizes, with weights drawn from
-    `generator` (the counterpart of the JAX `model.init`)."""
+    """`cfg.model` at the config's sizes, with the weights the JAX
+    `model.init(key, ...)` draws (key (0, 0) when None)."""
     return get_model(cfg.model)(
         cfg.total_feature_size, cfg.num_classes,
         lstm_cells=cfg.lstm_cells, lstm_layers=cfg.lstm_layers,
         classifier=cfg.video_level_classifier_model,
         classifier_kwargs={"num_mixtures": cfg.moe_num_mixtures},
-        generator=generator, device=device,
+        key=key, device=device,
     )
 
 
@@ -64,14 +65,14 @@ class StudentState:
 
 
 def init_distill_state(cfg: TrainConfig, optimizer: Optimizer,
-                       generator: Optional[torch.Generator] = None,
+                       key: Optional[prng.Key] = None,
                        device=None) -> DistillState:
-    """Teacher then student drawn from `generator` (a fresh one seeded
-    with `cfg.seed` when None), zero optimizer slots, step 0."""
-    if generator is None:
-        generator = torch.Generator().manual_seed(cfg.seed)
-    teacher = init_model(cfg, generator, device)
-    student = init_model(cfg, generator, device)
+    """The JAX `init_distill_state`: teacher and student drawn from the
+    two halves of `split(key)` (`PRNGKey(cfg.seed)` when None), so a seed
+    gives both packages the same weights; zero optimizer slots, step 0."""
+    kt, ks = prng.split(key or prng.prng_key(cfg.seed))
+    teacher = init_model(cfg, kt, device)
+    student = init_model(cfg, ks, device)
     return DistillState(
         teacher=teacher,
         student=student,

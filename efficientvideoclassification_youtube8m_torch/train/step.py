@@ -25,8 +25,7 @@ import torch.nn.functional as F
 
 from efficientvideoclassification_youtube8m_torch import losses as losses_lib
 from efficientvideoclassification_youtube8m_torch.metrics.eval_util import (
-    perr_precision_on_device,
-    topk_on_device,
+    topk_and_perr_on_device,
 )
 from efficientvideoclassification_youtube8m_torch.ops.preprocess import (
     dequantize,
@@ -46,14 +45,14 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
     StudentState,
     params_of,
 )
-from efficientvideoclassification_youtube8m_tpu.utils.config import TrainConfig
+from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
 
 Tensors = Dict[str, torch.Tensor]
 
 
 def resolve_label_loss(cfg: TrainConfig) -> Callable:
     """The label loss from the registry. Only CrossEntropyLoss is ported;
-    the other names raise (ROADMAP Queue 1 item 12)."""
+    the other names raise (ROADMAP Queue 1, the model zoo and losses)."""
     return losses_lib.get_loss(cfg.label_loss)
 
 
@@ -231,14 +230,15 @@ def build_distill_train_step(cfg: TrainConfig, optimizer: Optimizer,
         optimizer.update(g_t, state.opt_teacher, params_of(state.teacher), lr)
         optimizer.update(g_s, state.opt_student, params_of(state.student), lr)
         state.global_step += step_increment
-        topk_val, topk_idx = topk_on_device(preds_t, top_k)
+        topk_val, topk_idx, perr = topk_and_perr_on_device(preds_t, labels,
+                                                           top_k)
         metrics = dict(
             ls,
             learning_rate=lr,
             global_step=state.global_step,
             topk_val=topk_val,
             topk_idx=topk_idx,
-            perr_precision=perr_precision_on_device(preds_t, labels),
+            perr_precision=perr,
         )
         return state, metrics
 
@@ -260,7 +260,7 @@ def build_finetune_step(cfg: TrainConfig, optimizer: Optimizer,
     if aggregated:
         raise NotImplementedError(
             "the aggregated --frame_features=False branch is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
+            "(ROADMAP Queue 1, the model zoo and losses)")
     schedule = _schedule(cfg)
     label_loss_fn = resolve_label_loss(cfg)
 
@@ -280,7 +280,7 @@ def build_finetune_step(cfg: TrainConfig, optimizer: Optimizer,
         optimizer.update(g_s, state.opt_student, params_of(state.student), lr)
         state.global_step += 1
         preds = out_s["predictions"].detach()
-        topk_val, topk_idx = topk_on_device(preds, top_k)
+        topk_val, topk_idx, perr = topk_and_perr_on_device(preds, labels, top_k)
         metrics = {
             "student_label_loss": label_loss.detach(),
             "student_reg_loss": reg.detach(),
@@ -288,7 +288,7 @@ def build_finetune_step(cfg: TrainConfig, optimizer: Optimizer,
             "global_step": state.global_step,
             "topk_val": topk_val,
             "topk_idx": topk_idx,
-            "perr_precision": perr_precision_on_device(preds, labels),
+            "perr_precision": perr,
         }
         return state, metrics
 
@@ -334,12 +334,12 @@ def _check_eval_model(cfg: TrainConfig) -> None:
     """Stands where the JAX eval steps call `_faithful_eval_rngs`, which
     draws eval-time frame-sampling rngs for `DbofModel` under faithful
     mode and none for the other models. DbofModel is not ported (ROADMAP
-    Queue 1 item 12), so it raises here instead of evaluating without
+    Queue 1, the model zoo and losses), so it raises here instead of evaluating without
     them."""
     if cfg.model == "DbofModel":
         raise NotImplementedError(
             "DbofModel and its eval-time frame sampling are not ported yet "
-            "(ROADMAP Queue 1 item 12)")
+            "(ROADMAP Queue 1, the model zoo and losses)")
 
 
 def _eval_outputs(predictions: torch.Tensor, labels: torch.Tensor,
@@ -351,8 +351,8 @@ def _eval_outputs(predictions: torch.Tensor, labels: torch.Tensor,
     per_example_loss = -torch.sum(
         fl * torch.log(predictions + eps)
         + (1 - fl) * torch.log(1 - predictions + eps), dim=1)
-    topk_val, topk_idx = topk_on_device(predictions, top_k)
-    perr = perr_precision_on_device(predictions, labels)
+    topk_val, topk_idx, perr = topk_and_perr_on_device(predictions, labels,
+                                                       top_k)
     return {
         "predictions": predictions,
         "per_example_loss": per_example_loss,
@@ -401,7 +401,7 @@ def build_eval_step(cfg: TrainConfig, top_k: int = 20,
     if aggregated:
         raise NotImplementedError(
             "the aggregated --frame_features=False branch is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
+            "(ROADMAP Queue 1, the model zoo and losses)")
     _check_eval_model(cfg)
 
     @torch.no_grad()

@@ -1,3 +1,2 @@
-"""Utilities: the per-variable histogram summaries of the train loops
-(utils/summary.py); the events-file writer is the JAX package's,
-imported."""
+"""Utilities: the config (utils/config.py) and the TensorBoard summaries
+(utils/summary.py)."""

@@ -22,7 +22,8 @@ from efficientvideoclassification_youtube8m_tpu.train import checkpoint as jckpt
 from efficientvideoclassification_youtube8m_tpu.train import optimizer as joptimizer
 from efficientvideoclassification_youtube8m_tpu.train import state as jstate_lib
 from efficientvideoclassification_youtube8m_tpu.utils import summary as jsummary
-from efficientvideoclassification_youtube8m_tpu.utils.config import TrainConfig
+# the port's config: the JAX functions read the same fields (test_torch_summary_flags.py)
+from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
 from efficientvideoclassification_youtube8m_torch.train import checkpoint as tckpt
 from efficientvideoclassification_youtube8m_torch.train import msgpack_io
 from efficientvideoclassification_youtube8m_torch.train.optimizer import (
@@ -220,9 +221,9 @@ def test_pointer_file_and_max_to_keep_match_jax(tmp_path):
     with pytest.raises(NotImplementedError, match="TF-V2"):
         tckpt.restore_checkpoint(str(dirs["port"] / "model.ckpt-40"), None)
     (dirs["port"] / "model.ckpt-50").mkdir()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, parallel and orbax"):
         tckpt.restore_checkpoint(str(dirs["port"] / "model.ckpt-50"), None)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, parallel and orbax"):
         tckpt.save_checkpoint(str(dirs["port"]), tree, 1, backend="orbax")
 
 

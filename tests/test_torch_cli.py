@@ -21,7 +21,7 @@ from efficientvideoclassification_youtube8m_tpu.data import (
     encode_frame_record,
     write_synthetic_frame_shard,
 )
-from efficientvideoclassification_youtube8m_tpu.metrics import eval_util
+from efficientvideoclassification_youtube8m_tpu.metrics import eval_util as jax_eval_util
 from efficientvideoclassification_youtube8m_tpu.parallel import distributed as jax_dist
 from efficientvideoclassification_youtube8m_tpu.train import (
     init_distill_state as jax_init_distill_state,
@@ -31,6 +31,7 @@ from efficientvideoclassification_youtube8m_tpu.train import (
 from efficientvideoclassification_youtube8m_torch.cli import convert, finetune, train, validate
 from efficientvideoclassification_youtube8m_torch.cli import eval as eval_cli
 from efficientvideoclassification_youtube8m_torch.cli import flags
+from efficientvideoclassification_youtube8m_torch.metrics import eval_util
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
 from efficientvideoclassification_youtube8m_torch.serving import Predictor
 from efficientvideoclassification_youtube8m_torch.train import msgpack_io
@@ -107,21 +108,27 @@ def _leaves(path, prefix=""):
 
 
 def _epoch_metrics(run):
-    """The epoch metrics of every eval epoch `run()` makes (through the
-    EvaluationMetrics class both packages share)."""
+    """The epoch metrics of every eval epoch `run()` makes, through the
+    EvaluationMetrics class of either package (each package's binaries use
+    their own)."""
     captured = []
-    orig = eval_util.EvaluationMetrics.get
+    classes = (jax_eval_util.EvaluationMetrics, eval_util.EvaluationMetrics)
+    originals = [cls.get for cls in classes]
 
-    def capture(self):
-        data = orig(self)
-        captured.append(data)
-        return data
+    def capturing(orig):
+        def capture(self):
+            data = orig(self)
+            captured.append(data)
+            return data
+        return capture
 
-    eval_util.EvaluationMetrics.get = capture
+    for cls, orig in zip(classes, originals):
+        cls.get = capturing(orig)
     try:
         run()
     finally:
-        eval_util.EvaluationMetrics.get = orig
+        for cls, orig in zip(classes, originals):
+            cls.get = orig
     return captured
 
 
@@ -259,16 +266,21 @@ def test_06_predictor_from_checkpoint(dirs):
                                   device="cpu")
 
 
+PARALLEL = "ROADMAP Queue 1, parallel and orbax"
+ZOO = "ROADMAP Queue 1, the model zoo and losses"
+HOST_PATHS = "ROADMAP Queue 1, the host paths of the binaries"
+
+
 @pytest.mark.parametrize("binary,extra,match", [
-    (train, ["--use_shardmap_train", "true"], "item 13"),
-    (train, ["--model_parallelism", "2"], "item 13"),
-    (train, ["--checkpoint_format", "orbax"], "item 13"),
-    (train, ["--model", "DbofModel"], "item 12"),
-    (finetune, ["--frame_features", "false"], "item 12"),
-    (eval_cli, ["--frame_features", "false"], "item 12"),
-    (eval_cli, ["--steps_per_dispatch", "3"], "item 9"),
-    (validate, ["--steps_per_dispatch", "3"], "item 9"),
-    (validate, ["--video_level_classifier_model", "LogisticModel"], "item 12"),
+    (train, ["--use_shardmap_train", "true"], PARALLEL),
+    (train, ["--model_parallelism", "2"], PARALLEL),
+    (train, ["--checkpoint_format", "orbax"], PARALLEL),
+    (train, ["--model", "DbofModel"], ZOO),
+    (finetune, ["--frame_features", "false"], ZOO),
+    (eval_cli, ["--frame_features", "false"], ZOO),
+    (eval_cli, ["--steps_per_dispatch", "3"], HOST_PATHS),
+    (validate, ["--steps_per_dispatch", "3"], HOST_PATHS),
+    (validate, ["--video_level_classifier_model", "LogisticModel"], ZOO),
 ])
 def test_07_unported_options_raise(dirs, binary, extra, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -278,13 +290,13 @@ def test_07_unported_options_raise(dirs, binary, extra, match):
                                   "--run_once", "true"] + extra)
 
 
-@pytest.mark.parametrize("name", ["infer", "inference_ensemble", "inference_bias",
-                                  "max_ensemble", "train_ensemble", "export_tf",
-                                  "inspect_checkpoint"])
-def test_07b_unported_binaries_raise(name):
+@pytest.mark.parametrize("name,match", [
+    ("inference_ensemble", ZOO), ("train_ensemble", ZOO),
+    ("export_tf", "ROADMAP Queue 1, checkpoint interop")])
+def test_07b_unported_binaries_raise(name, match):
     binary = importlib.import_module(
         f"efficientvideoclassification_youtube8m_torch.cli.{name}")
-    with pytest.raises(NotImplementedError, match=f"cli.{name} .*item 14"):
+    with pytest.raises(NotImplementedError, match=f"cli.{name} .*{match}"):
         binary.main(["--train_dir", "unused"])
 
 
@@ -312,7 +324,7 @@ def test_08_flags_devices_and_clusters(dirs, tmp_path, monkeypatch):
         flags.resolve_device(parser.parse_args(["--device", "tpu"]))
     monkeypatch.setenv("TF_CONFIG", '{"cluster": {"master": ["a:1"], '
                        '"worker": ["b:1"]}, "task": {"type": "master"}}')
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match=PARALLEL):
         train.main(TINY_FLAGS + ["--train_dir", str(tmp_path)])
     monkeypatch.delenv("TF_CONFIG")
     with pytest.raises(IOError, match="no converted checkpoint"):
@@ -389,6 +401,27 @@ def test_10_cross_package_training(cross):
     assert moved > 100 * TRAIN_ATOL  # the runs went somewhere
     assert max(worst.values()) <= TRAIN_ATOL, sorted(
         worst.items(), key=lambda kv: -kv[1])[:3]
+
+
+def test_10b_cross_package_training_from_one_seed(dirs):
+    """With no checkpoint, `--seed` alone gives both packages' cli.train
+    the same init (ops/prng.py draws the JAX package's weights), so their
+    fresh runs end as close as runs from one checkpoint do."""
+    root = dirs["root"]
+    train_dirs = {}
+    for pkg, binary in (("jax", jax_train), ("port", train)):
+        train_dirs[pkg] = str(root / f"{pkg}_seeded_train") + "/"
+        binary.main(TINY_FLAGS + SAME_BATCHES + [
+            "--train_dir", train_dirs[pkg], "--seed", "3",
+            "--start_new_model", "true",
+            "--train_data_pattern", dirs["train_pattern"], "--num_epochs", "2"])
+    jax_leaves = _leaves(latest_checkpoint(train_dirs["jax"]))
+    port_leaves = _leaves(latest_checkpoint(train_dirs["port"]))
+    assert jax_leaves.keys() == port_leaves.keys()
+    assert int(port_leaves["global_step"]) == 12
+    worst = max(float(np.abs(port_leaves[k] - want).max())
+                for k, want in jax_leaves.items() if k.startswith("params_"))
+    assert worst <= TRAIN_ATOL
 
 
 def test_11_cross_package_eval(dirs, cross):

@@ -18,7 +18,8 @@ from efficientvideoclassification_youtube8m_tpu.parallel.distributed import (
     unpack_host_pack,
 )
 from efficientvideoclassification_youtube8m_tpu.train import step as jstep
-from efficientvideoclassification_youtube8m_tpu.utils.config import TrainConfig
+# the port's config: the JAX functions read the same fields (test_torch_summary_flags.py)
+from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
 from efficientvideoclassification_youtube8m_torch.train import step as tstep
 from efficientvideoclassification_youtube8m_torch.train.state import init_model
 from efficientvideoclassification_youtube8m_torch.weights import (
@@ -176,7 +177,7 @@ def test_eval_step_guards():
     with pytest.raises(ValueError, match="flagship"):
         tstep.build_quantized_eval_step(
             TINY.replace(video_level_classifier_model="LogisticModel"))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the model zoo and losses"):
         tstep.build_eval_step(TINY, aggregated=True)
     dbof = TINY.replace(model="DbofModel")
     with pytest.raises(NotImplementedError, match="DbofModel"):

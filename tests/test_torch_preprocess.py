@@ -10,7 +10,8 @@ from efficientvideoclassification_youtube8m_tpu.ops import preprocess as jpre
 from efficientvideoclassification_youtube8m_tpu.train.step import (
     preprocess_batch as jax_preprocess_batch,
 )
-from efficientvideoclassification_youtube8m_tpu.utils.config import TrainConfig
+# the port's config: the JAX functions read the same fields (test_torch_summary_flags.py)
+from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
 from efficientvideoclassification_youtube8m_torch.ops import preprocess as tpre
 from efficientvideoclassification_youtube8m_torch.train.step import (
     preprocess_batch,

@@ -19,7 +19,9 @@ from efficientvideoclassification_youtube8m_tpu.ops.pallas.lstm_scan import (
     lstm_chunk_scan_pallas_int8,
 )
 from efficientvideoclassification_youtube8m_tpu.serving import Predictor as JaxPredictor
-from efficientvideoclassification_youtube8m_tpu.utils.config import TrainConfig
+# the port's config: the JAX functions read the same fields (test_torch_summary_flags.py)
+from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
+from efficientvideoclassification_youtube8m_torch.ops import prng
 from efficientvideoclassification_youtube8m_torch.ops import quantize as tq
 from efficientvideoclassification_youtube8m_torch.ops.kernels import _build
 from efficientvideoclassification_youtube8m_torch.ops.kernels.lstm_scan_int8 import (
@@ -366,7 +368,7 @@ def _train_tiny_student(cfg, steps=220, lr=0.02, seed=0):
     cfg_t = cfg.replace(base_learning_rate=lr)
     opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
     state = student_state_from_distill(
-        init_distill_state(cfg_t, opt, torch.Generator().manual_seed(seed)), opt)
+        init_distill_state(cfg_t, opt, prng.prng_key(seed)), opt)
     step = build_finetune_step(cfg_t, opt, top_k=5)
     for i in range(steps):
         state, _ = step(state, *map(torch.from_numpy, batch(cfg.batch_size, 1000 + i)))

@@ -19,7 +19,8 @@ import torch
 
 from efficientvideoclassification_youtube8m_tpu.models import get_model as jax_get_model
 from efficientvideoclassification_youtube8m_tpu.serving import Predictor as JaxPredictor
-from efficientvideoclassification_youtube8m_tpu.utils.config import TrainConfig
+# the port's config: the JAX functions read the same fields (test_torch_summary_flags.py)
+from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
 from efficientvideoclassification_youtube8m_torch.ops import quantize
 from efficientvideoclassification_youtube8m_torch.ops.kernels import (
     layout,

@@ -9,7 +9,9 @@ import torch
 
 from efficientvideoclassification_youtube8m_tpu.models import get_model as jax_get_model
 from efficientvideoclassification_youtube8m_tpu.serving import Predictor as JaxPredictor
-from efficientvideoclassification_youtube8m_tpu.utils.config import TrainConfig
+# the port's config: the JAX functions read the same fields (test_torch_summary_flags.py)
+from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
+from efficientvideoclassification_youtube8m_torch.ops import prng
 from efficientvideoclassification_youtube8m_torch.serving import Predictor, init_model
 from efficientvideoclassification_youtube8m_torch.weights import to_jax_params
 
@@ -99,8 +101,8 @@ def test_module_from_seeded_init(tree):
     """A Predictor takes an nn.Module too; the seeded init is
     reproducible and has the JAX tree's layout."""
     feats, nf = _batch(3, seed=5)
-    a = init_model(CFG, torch.Generator().manual_seed(7))
-    b = init_model(CFG, torch.Generator().manual_seed(7))
+    a = init_model(CFG, prng.prng_key(7))
+    b = init_model(CFG, prng.prng_key(7))
     pa = Predictor(CFG, a, serve_batch=4, device="cpu").predict(feats, nf)
     pb = Predictor(CFG, b, serve_batch=4, device="cpu").predict(feats, nf)
     np.testing.assert_array_equal(pa, pb)

@@ -21,10 +21,10 @@ from efficientvideoclassification_youtube8m_tpu.ops.preprocess import (
     uniform_subsample as jax_uniform_subsample,
 )
 from efficientvideoclassification_youtube8m_tpu.train import step as jstep
-from efficientvideoclassification_youtube8m_tpu.utils.config import TrainConfig
+# the port's config: the JAX functions read the same fields (test_torch_summary_flags.py)
+from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
 from efficientvideoclassification_youtube8m_torch.metrics.eval_util import (
-    perr_precision_on_device,
-    topk_on_device,
+    topk_and_perr_on_device,
 )
 from efficientvideoclassification_youtube8m_torch.ops.preprocess import host_subsample
 from efficientvideoclassification_youtube8m_torch.train import step as tstep
@@ -315,7 +315,7 @@ def test_finetune_step_matches_jax(host_subsampled):
 
 def test_finetune_aggregated_branch_raises():
     opt = make_optimizer(TINY.optimizer)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the model zoo and losses"):
         tstep.build_finetune_step(TINY, opt, aggregated=True)
 
 
@@ -338,12 +338,11 @@ def test_topk_and_perr_with_tied_scores_match_jax(seed):
     labels[0] = False
     labels[2, :6] = True
     want_v, want_i = jax.lax.top_k(jnp.asarray(preds), 7)
-    got_v, got_i = topk_on_device(torch.from_numpy(preds), 7)
+    got_v, got_i, got_p = topk_and_perr_on_device(
+        torch.from_numpy(preds), torch.from_numpy(labels), 7)
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     want_p = np.asarray(jax_perr(jnp.asarray(preds), jnp.asarray(labels)))
-    got_p = perr_precision_on_device(torch.from_numpy(preds),
-                                     torch.from_numpy(labels))
     assert got_p.dtype == torch.float32 and got_p[0].item() == 0.0
     np.testing.assert_allclose(got_p.numpy(), want_p, rtol=1e-6)
 

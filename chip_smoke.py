@@ -93,9 +93,24 @@ kernel's device time alone, the replay of a CUDA graph of one call
      learnable videos, 960 global steps, then 512 held-out videos)
      through cli.train and cli.validate; its bands decide (train GAP >=
      0.995 by step 700, held-out Hit@1 >= 0.95 and GAP >= 0.74), with the
-     exact train-kernel launch counts. Last, no module of jax, flax,
-     msgpack or the JAX package is loaded and nothing was written into
-     the JAX package's directory.
+     exact train-kernel launch counts;
+ 12. the model zoo at the flagship's widths, batch 256, bf16 (the
+     reference's DBoF flags; NetVLAD and NeXtVLAD at the JAX package's
+     defaults): (a) FrameLevelLogisticModel, DbofModel, NetVLADModel and
+     NeXtVLADModel through cli.finetune --start_new_model (4 steps) and
+     cli.eval (600 videos) with their own rate lines, and one finetune
+     step of each on the card against the CPU from one init; (b) the
+     flagship with the LogisticModel, SingleHiddenLayerModelDropout
+     (keep 0.5) and SplitSingleHiddenLayerModel heads: kernel path
+     against plain path (phase 6's bars; the same dropout masks), 8 + 8
+     train launches a step, step times, then cli.train with the dropout
+     head on 9b's shards; (c) 2048 aggregated videos through cli.finetune,
+     cli.eval and cli.infer --frame_features=False for three video-level
+     models, then cli.train_ensemble and cli.inference_ensemble over
+     their CSVs, the ensemble's rows on the card against the same head
+     run on the CPU. Phase 9's directory lives until the end. Last, no
+     module of jax, flax, msgpack or the JAX package is loaded and
+     nothing was written into the JAX package's directory.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is {"kernels": [...]}; the last is {"ok": true, "device": {...}}. With no
@@ -105,6 +120,7 @@ CUDA device the script stops before it measures anything.
 from __future__ import annotations
 
 import contextlib
+import copy
 import glob
 import hashlib
 import io
@@ -132,10 +148,14 @@ from efficientvideoclassification_youtube8m_torch.cli import hash_check as hash_
 from efficientvideoclassification_youtube8m_torch.cli import infer as infer_cli
 from efficientvideoclassification_youtube8m_torch.cli import inference_bias as inference_bias_cli
 from efficientvideoclassification_youtube8m_torch.cli import (
+    inference_ensemble as inference_ensemble_cli,
+)
+from efficientvideoclassification_youtube8m_torch.cli import (
     inspect_checkpoint as inspect_checkpoint_cli,
 )
 from efficientvideoclassification_youtube8m_torch.cli import max_ensemble as max_ensemble_cli
 from efficientvideoclassification_youtube8m_torch.cli import train as train_cli
+from efficientvideoclassification_youtube8m_torch.cli import train_ensemble as train_ensemble_cli
 from efficientvideoclassification_youtube8m_torch.cli import validate as validate_cli
 from efficientvideoclassification_youtube8m_torch.data import native
 from efficientvideoclassification_youtube8m_torch.metrics.eval_util import (
@@ -157,7 +177,9 @@ from efficientvideoclassification_youtube8m_torch.train.optimizer import (
     make_optimizer,
 )
 from efficientvideoclassification_youtube8m_torch.train.state import (
+    StudentState,
     init_distill_state,
+    params_of,
     student_state_from_distill,
 )
 from efficientvideoclassification_youtube8m_torch.scripts import acceptance_run
@@ -596,14 +618,14 @@ def phase_train_kernels():
     return worst, times
 
 
-def distill_batch(cfg, n, seed):
-    """n uint8 videos [n, 300, 1152] with num_frames in 1..300 and about
-    3 labels a row, on the card."""
+def distill_batch(cfg, n, seed, min_frames: int = 1):
+    """n uint8 videos [n, 300, 1152] with num_frames in min_frames..300
+    and about 3 labels a row, on the card."""
     rng = np.random.default_rng(seed)
     feats = rng.integers(0, 256, (n, cfg.max_num_frames, cfg.total_feature_size),
                          dtype=np.uint8)
     labels = rng.random((n, cfg.num_classes)) < 3.0 / cfg.num_classes
-    nf = rng.integers(1, cfg.max_num_frames + 1, n).astype(np.int32)
+    nf = rng.integers(min_frames, cfg.max_num_frames + 1, n).astype(np.int32)
     return tuple(torch.from_numpy(a).cuda() for a in (feats, labels, nf))
 
 
@@ -659,6 +681,38 @@ def profile_distill_step(step, state, batch, smi) -> None:
         log(f"[6]   {ms:8.3f} ms  {name[:110]}")
 
 
+def distill_kernel_vs_plain(cfg, state, batch, tag: str):
+    """`distill_loss_and_grads` on the kernel path and on the plain path
+    from the same state and batch (the same dropout keys): the loss
+    scalars within TOL_LOSS_REL + TOL_LOSS_ABS, every gradient within
+    TOL_GRAD_REL of its max. Returns (the kernel path's losses, the
+    gradient errors worst first, the kernel path's train launches)."""
+    before = train_counts()
+    k_ls, _, k_gt, k_gs = distill_loss_and_grads(cfg, state, *batch)
+    delta = [a - b for a, b in zip(train_counts(), before)]
+    p_ls, _, p_gt, p_gs = distill_loss_and_grads(cfg, state, *batch,
+                                                 kernel_train_mode="off")
+    loss_bad = [k for k in k_ls if abs(k_ls[k].item() - p_ls[k].item())
+                > TOL_LOSS_REL * abs(p_ls[k].item()) + TOL_LOSS_ABS]
+    log(f"[{tag}] distill losses, kernel path / plain path: " + "; ".join(
+        f"{k} {k_ls[k].item():.6g} / {p_ls[k].item():.6g}" for k in k_ls))
+    grad_err = {f"{tower}.{n}": rel_err(g[n], p[n])
+                for tower, g, p in (("teacher", k_gt, p_gt), ("student", k_gs, p_gs))
+                for n in g}
+    top = sorted(grad_err.items(), key=lambda kv: -kv[1])
+    log(f"[{tag}] gradients, kernel path vs plain path, max|diff| of max over "
+        f"{len(grad_err)} tensors: worst " + ", ".join(
+            f"{n} {v:.3g}" for n, v in top[:4]) + f"; median "
+        f"{float(np.median(list(grad_err.values()))):.3g}; train launches of the kernel "
+        f"path fwd {delta[0]} bwd {delta[1]} (tolerances: losses {TOL_LOSS_REL} "
+        f"relative + {TOL_LOSS_ABS}, gradients {TOL_GRAD_REL})")
+    if loss_bad or not all(math.isfinite(v) for v in grad_err.values()):
+        raise AssertionError(f"[{tag}] kernel and plain distill losses disagree: {loss_bad}")
+    if top[0][1] > TOL_GRAD_REL:
+        raise AssertionError(f"[{tag}] kernel and plain distill gradients disagree: {top[:4]}")
+    return k_ls, top, delta
+
+
 def phase_distill(smi):
     cfg = TrainConfig(compute_dtype="bfloat16")
     B = cfg.batch_size
@@ -668,27 +722,9 @@ def phase_distill(smi):
     batch = distill_batch(cfg, B, seed=6)
     per_tower = 2 * cfg.lstm_layers  # train kernel launches of each kind
 
-    k_ls, _, k_gt, k_gs = distill_loss_and_grads(cfg, state, *batch)
-    p_ls, _, p_gt, p_gs = distill_loss_and_grads(cfg, state, *batch,
-                                                 kernel_train_mode="off")
-    loss_bad = [k for k in k_ls if abs(k_ls[k].item() - p_ls[k].item())
-                > TOL_LOSS_REL * abs(p_ls[k].item()) + TOL_LOSS_ABS]
-    log("[6] distill losses, kernel path / plain path: " + "; ".join(
-        f"{k} {k_ls[k].item():.6g} / {p_ls[k].item():.6g}" for k in k_ls))
-    grad_err = {f"{tower}.{n}": rel_err(g[n], p[n])
-                for tower, g, p in (("teacher", k_gt, p_gt), ("student", k_gs, p_gs))
-                for n in g}
-    top = sorted(grad_err.items(), key=lambda kv: -kv[1])
-    log(f"[6] gradients, kernel path vs plain path, max|diff| of max over "
-        f"{len(grad_err)} tensors: worst " + ", ".join(
-            f"{n} {v:.3g}" for n, v in top[:4]) + f"; median "
-        f"{float(np.median(list(grad_err.values()))):.3g} (tolerances: losses "
-        f"{TOL_LOSS_REL} relative + {TOL_LOSS_ABS}, gradients {TOL_GRAD_REL})")
-    if loss_bad or not all(math.isfinite(v) for v in grad_err.values()):
-        raise AssertionError(f"kernel and plain distill losses disagree: {loss_bad}")
-    if top[0][1] > TOL_GRAD_REL:
-        raise AssertionError(f"kernel and plain distill gradients disagree: {top[:4]}")
-    del k_gt, k_gs, p_gt, p_gs
+    k_ls, _, delta = distill_kernel_vs_plain(cfg, state, batch, "6")
+    if delta != [2 * per_tower, 2 * per_tower]:
+        raise AssertionError(f"the kernel path made {delta} train launches")
 
     step = build_distill_train_step(cfg, opt)
     lstm_scan.lstm_chunk_scan.launches = 0
@@ -1120,7 +1156,7 @@ class LogCapture(logging.Handler):
         self.logger.removeHandler(self)
 
 
-def run_binary(tag: str, main_fn, argv, expected):
+def run_binary(tag: str, main_fn, argv, expected, phase: str = "9"):
     """`main_fn(argv)` with every kernel count set to 0 just before it and
     read just after; each count must equal `expected` (0 where not named).
     Returns (the binary's result, its seconds, the counts)."""
@@ -1131,7 +1167,7 @@ def run_binary(tag: str, main_fn, argv, expected):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in COUNTERS.items()}
-    log(f"[9] {tag}: {seconds:.3f} s; kernel launches "
+    log(f"[{phase}] {tag}: {seconds:.3f} s; kernel launches "
         + ", ".join(f"{k} {v}" for k, v in counts.items()))
     want = {name: expected.get(name, 0) for name in COUNTERS}
     if counts != want:
@@ -1353,11 +1389,14 @@ def check_rows_against_predictor(rows, probs, top_k: int) -> float:
     return worst
 
 
-def check_int8_rows(bf16_rows, int8_rows) -> float:
-    """Each class in both rows within TOL_INT8_PREDICTIONS; a class in one
-    row only sits within that bar of the other row's last probability."""
+def rows_within(rows_a, rows_b, tol: float, what: str) -> float:
+    """Each class in both rows of a video within `tol`; a class in one
+    row only sits within `tol` of the other row's last probability.
+    Returns the largest difference."""
+    if [vid for vid, _ in rows_a] != [vid for vid, _ in rows_b]:
+        raise AssertionError(f"{what}: the CSVs hold other videos")
     worst = 0.0
-    for (vid, a), (_, b) in zip(bf16_rows, int8_rows):
+    for (vid, a), (_, b) in zip(rows_a, rows_b):
         da, db = dict(a), dict(b)
         for c in set(da) | set(db):
             if c in da and c in db:
@@ -1366,8 +1405,8 @@ def check_int8_rows(bf16_rows, int8_rows) -> float:
                 mine, other = (da[c], b) if c in da else (db[c], a)
                 diff = max(0.0, mine - other[-1][1])
             worst = max(worst, diff)
-    if worst > TOL_INT8_PREDICTIONS:
-        raise AssertionError(f"int8 and bf16 CSVs differ by {worst}")
+    if worst > tol:
+        raise AssertionError(f"{what}: the CSVs differ by {worst} (tolerance {tol})")
     return worst
 
 
@@ -1413,7 +1452,8 @@ def phase_pipeline_infer(root: str, fidelity: dict):
     worst = check_rows_against_predictor(rows["bf16"], probs, top_k)
     same = sum(line == w for line, w in zip(open(csv["bf16"]).read().splitlines()[1:],
                                               (w.rstrip("\n") for w in want)))
-    int8_worst = check_int8_rows(rows["bf16"], rows["int8"])
+    int8_worst = rows_within(rows["bf16"], rows["int8"], TOL_INT8_PREDICTIONS,
+                             "9c int8 against bf16")
     moved = max(abs(p - q) for (_, a), (_, b) in zip(rows["bf16"], rows["bias"])
                 for (_, p), (_, q) in zip(a, b))
     log(f"[9] 9c cli.infer bf16 against format_lines(Predictor.predict) of the same "
@@ -1621,16 +1661,10 @@ def infer_rates(root: str, data_dir: str, train_dir: str, smi: str, levels: int)
         + f"; cli.eval bf16 on the same shards {eval_rate:.1f} examples/s ({smi})")
 
 
-def phase_pipeline(smi: str, step_rate: float) -> None:
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "chip_smoke_pipeline")
-    shutil.rmtree(root, ignore_errors=True)
-    try:
-        fidelity = phase_pipeline_fidelity(root)
-        phase_pipeline_infer(root, fidelity)
-        phase_pipeline_scale(root, smi, step_rate)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+def phase_pipeline(root: str, smi: str, step_rate: float) -> None:
+    fidelity = phase_pipeline_fidelity(root)
+    phase_pipeline_infer(root, fidelity)
+    phase_pipeline_scale(root, smi, step_rate)
 
 
 # ------------------------------------- phase 10: the library yardstick
@@ -1781,6 +1815,283 @@ def phase_gate(smi: str) -> None:
     log("[11] acceptance bands: OK")
 
 
+# ------------------------------------------------- phase 12: the model zoo
+#
+# At the flagship's widths (D = 1152, 4716 classes, MoE 2, every_n 10,
+# batch 256, bf16) and the reference's DBoF flags (cluster 8192, hidden
+# 1024, 30 frames, max pooling, batch norm), NetVLAD and NeXtVLAD at the
+# JAX package's defaults (64 clusters, hidden 1024; expansion 2, 8 groups):
+# every TrainConfig default. 12b reads phase 9b's frame shards; 12a writes
+# its own, alike but with at least every_n frames a video (YT8M videos
+# hold 120 or more): FrameLevelLogisticModel divides by the student's
+# frame count, which is 0 below every_n frames, and then gives NaN, in the
+# JAX package and the reference alike (tests/test_torch_zoo.py).
+ZOO_MODELS = ("FrameLevelLogisticModel", "DbofModel", "NetVLADModel", "NeXtVLADModel")
+ZOO_HEADS = (("LogisticModel", 1.0), ("SingleHiddenLayerModelDropout", 0.5),
+             ("SplitSingleHiddenLayerModel", 1.0))
+ZOO_CPU_VIDEOS = 8
+# 12a, one finetune step of the card against the CPU from one init: the
+# label loss within 1e-3 relative; a parameter within 2.1 learning rates
+# (TF-Adam's first step moves an element by about lr whatever its
+# gradient, so a gradient element that rounds to the other sign on the
+# other device moves 2 lr apart) with at most ZOO_SHARE_BAR of the elements
+# beyond a tenth of lr; the moving statistics within 1e-6 absolute (the
+# means of centred activations are ~1e-11, rounding alone, so no relative
+# bar holds them; the variances are ~1).
+TOL_ZOO_LOSS_REL = 1e-3
+ZOO_PARAM_LRS = 2.1
+ZOO_SHARE_BAR = 1e-3
+TOL_ZOO_STATS = 1e-6
+FINETUNE_STEP_RE = re.compile(r"training step (\d+)\|.*L_CE: (\S+)")
+# 12c: 2048 aggregated videos (mean_rgb 1024 + mean_audio 128) in 4 shards
+AGG_VIDEOS, AGG_SHARDS = 2048, 4
+AGG_FLAGS = ["--frame_features", "false", "--feature_names", "mean_rgb, mean_audio"]
+AGG_MODELS = ("LogisticModel", "MoeModel", "SingleHiddenLayerModel")
+ENSEMBLE_HEADS = ("LinearRegressionEnsemble", "IndependentClassEnsemble")
+
+
+def zoo_step_card_vs_cpu(model_name: str, smi: str) -> None:
+    """12a: one `build_finetune_step` step of `model_name` on the card and
+    on the CPU from one init (drawn on the card, copied) and one batch of
+    ZOO_CPU_VIDEOS videos."""
+    cfg = TrainConfig(model=model_name, compute_dtype="bfloat16")
+    opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
+    card = init_model(cfg, prng.split(prng.prng_key(cfg.seed))[1], device="cuda")
+    models = {"card": card, "cpu": copy.deepcopy(card).cpu()}
+    batch = distill_batch(cfg, ZOO_CPU_VIDEOS, seed=12, min_frames=cfg.every_n)
+    step = build_finetune_step(cfg, opt)
+    out = {}
+    for where, model in models.items():
+        state = StudentState(model, opt.init(params_of(model)), 0, cfg.dropout)
+        _, metrics = step(state, *(t.to(next(model.parameters()).device) for t in batch))
+        out[where] = (metrics["student_label_loss"].item(),
+                      {n: p.detach().cpu() for n, p in params_of(model).items()})
+    (loss_card, card_p), (loss_cpu, cpu_p) = out["card"], out["cpu"]
+    lr = cfg.base_learning_rate
+    stats = [n for n in card_p if n.endswith(("moving_mean", "moving_var"))]
+    worst = max(float((card_p[n] - cpu_p[n]).abs().max()) for n in card_p if n not in stats)
+    beyond = sum(int(((card_p[n] - cpu_p[n]).abs() > lr / 10).sum()) for n in card_p
+                 if n not in stats)
+    total = sum(card_p[n].numel() for n in card_p if n not in stats)
+    stats_err = max((float((card_p[n] - cpu_p[n]).abs().max()) for n in stats), default=0.0)
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    log(f"[12] 12a {model_name}: one finetune step of {ZOO_CPU_VIDEOS} videos, card / "
+        f"CPU: label loss {loss_card:.6g} / {loss_cpu:.6g} (relative {loss_err:.3g}, bar "
+        f"{TOL_ZOO_LOSS_REL}); parameters max|diff| {worst:.3g} (bar {ZOO_PARAM_LRS} lr = "
+        f"{ZOO_PARAM_LRS * lr:.3g}), {beyond} of {total} elements beyond lr/10 (bar "
+        f"{ZOO_SHARE_BAR} of them); {len(stats)} moving statistics, max|diff| "
+        f"{stats_err:.3g} (bar {TOL_ZOO_STATS}) ({smi})")
+    if (loss_err > TOL_ZOO_LOSS_REL or worst > ZOO_PARAM_LRS * lr
+            or beyond > ZOO_SHARE_BAR * total or stats_err > TOL_ZOO_STATS
+            or (model_name == "DbofModel") != bool(stats)):
+        raise AssertionError(f"12a {model_name}: the card and the CPU disagree")
+
+
+def run_finetune_eval(tag: str, name: str, argv, train_pattern: str, eval_pattern: str,
+                      steps: int, expected=None):
+    """cli.finetune --start_new_model, then cli.eval --run_once of its
+    checkpoint, with their own rate lines. Returns (the eval epoch, the
+    finetune's steady videos/s, the eval's examples/s)."""
+    B = TrainConfig().batch_size
+    train_dir = argv[argv.index("--train_dir") + 1]
+    with LogCapture("finetune", FINETUNE_STEP_RE) as capture:
+        run_binary(f"{tag} finetune {name}", finetune_cli.main, argv + [
+            "--start_new_model", "true", "--train_data_pattern", train_pattern],
+            expected or {}, phase="12")
+    losses = [(int(n), float(v)) for n, v in capture.matches]
+    if [n for n, _ in losses] != list(range(1, steps + 1)) or not all(
+            math.isfinite(v) for _, v in losses):
+        raise AssertionError(f"{tag} {name}: finetune logged {losses}")
+    # its own Examples/Second by step; after the first, videos over summed time
+    rates = read_scalars(train_dir, "global_step/Examples/Second")
+    if sorted(rates) != list(range(1, steps + 1)):
+        raise AssertionError(f"{tag} {name}: Examples/Second at steps {sorted(rates)}")
+    later = [rates[s] for s in sorted(rates)[1:]]
+    steady = len(later) * B / sum(B / r for r in later)
+    with LogCapture("eval", EVAL_RATE_RE) as capture:
+        epoch, _, _ = run_binary(f"{tag} eval {name}", eval_cli.main, argv + [
+            "--run_once", "true", "--eval_data_pattern", eval_pattern], expected or {},
+            phase="12")
+    (eval_rate,) = [float(m[0]) for m in capture.matches]
+    if epoch["epoch_id"] != steps or not all(
+            math.isfinite(epoch[k]) and 0.0 <= epoch[k] <= 1.0 for k in EPOCH_KEYS):
+        raise AssertionError(f"{tag} {name}: eval epoch {epoch}")
+    log(f"[12] {tag} {name}: cli.finetune L_CE by step " + ", ".join(
+        f"{n}: {v}" for n, v in losses) + "; Examples/Second by step " + ", ".join(
+        f"{n}: {v:.1f}" for n, v in sorted(rates.items()))
+        + f"; after the first step {steady:.1f} videos/s; cli.eval " + ", ".join(
+        f"{k} {epoch[k]:.4f}" for k in EPOCH_KEYS) + f", {eval_rate:.1f} examples/s")
+    return epoch, steady, eval_rate
+
+
+def phase_zoo_frames(root: str, smi: str) -> dict:
+    """12a: each frame model of the zoo through cli.finetune (4 steps over
+    512 training videos, 2 epochs) and cli.eval (600 videos), then one
+    finetune step on the card against the CPU."""
+    data_dir = os.path.join(root, "zoo_frames")
+    os.makedirs(data_dir)
+    for split, videos, seed in (("train", SCALE_TRAIN, 40), ("validate", SCALE_EVAL, 50)):
+        for s in range(SHARDS):
+            port_data.write_synthetic_frame_shard(
+                os.path.join(data_dir, f"{split}-{s:04d}.tfrecord"),
+                num_videos=videos // SHARDS, seed=seed + s,
+                min_frames=TrainConfig().every_n)
+    train_pattern = os.path.join(data_dir, "train*.tfrecord")
+    eval_pattern = os.path.join(data_dir, "validate*.tfrecord")
+    steps = 2 * SCALE_TRAIN // TrainConfig().batch_size
+    rates = {}
+    for name in ZOO_MODELS:
+        train_dir = os.path.join(root, f"zoo_{name}") + "/"
+        _, rates[name], eval_rate = run_finetune_eval(
+            "12a", name, ["--model", name, "--train_dir", train_dir, "--num_epochs", "2"],
+            train_pattern, eval_pattern, steps)
+        rates[f"{name} eval"] = eval_rate
+        shutil.rmtree(train_dir)
+        zoo_step_card_vs_cpu(name, smi)
+    log("[12] 12a videos/s at batch 256 (finetune after its first step; eval): " + "; ".join(
+        f"{name} {rates[name]:.1f}, {rates[name + ' eval']:.1f}" for name in ZOO_MODELS)
+        + f" ({smi})")
+    return rates
+
+
+def phase_zoo_heads(root: str, smi: str) -> dict:
+    """12b: the flagship with other heads on the train kernels: kernel
+    path against plain path from one init (the same dropout masks), three
+    steps of build_distill_train_step with their launches and times; then
+    cli.train 4 steps with SingleHiddenLayerModelDropout."""
+    per_step = 2 * 2 * TrainConfig().lstm_layers  # towers x levels x layers
+    step_ms = {}
+    for head, keep in ZOO_HEADS:
+        cfg = TrainConfig(compute_dtype="bfloat16", video_level_classifier_model=head,
+                          dropout=keep)
+        opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
+        state = init_distill_state(cfg, opt, prng.prng_key(0), device="cuda")
+        batch = distill_batch(cfg, cfg.batch_size, seed=6)
+        log(f"[12] 12b {head} (keep {keep}): one distill step, kernel path against "
+            "plain path")
+        _, _, delta = distill_kernel_vs_plain(cfg, state, batch, "12")
+        if delta != [per_step, per_step]:
+            raise AssertionError(f"12b {head}: the kernel path made {delta} train launches")
+        step = build_distill_train_step(cfg, opt)
+        seconds = []
+        for i in range(3):
+            before = train_counts()
+            state, metrics, sec = timed_step(step, state, batch)
+            seconds.append(sec)
+            launches = [a - b for a, b in zip(train_counts(), before)]
+            if launches != [per_step, per_step] or not math.isfinite(
+                    metrics["total_student_loss"].item()):
+                raise AssertionError(f"12b {head} step {i + 1}: launches {launches}, "
+                                     f"loss {metrics['total_student_loss'].item()}")
+        step_ms[head] = float(np.median(seconds[1:])) * 1e3
+        log(f"[12] 12b {head} (keep {keep}): {per_step} + {per_step} train launches a "
+            "step; steps " + ", ".join(
+                f"{s * 1e3:.1f}" for s in seconds) + f" ms, median of steps 2-3 "
+            f"{step_ms[head]:.1f} ms, {cfg.batch_size / step_ms[head] * 1e3:.1f} videos/s; "
+            f"losses of step 3: teacher_label_loss "
+            f"{metrics['teacher_label_loss'].item():.6g}, total_student_loss "
+            f"{metrics['total_student_loss'].item():.6g} ({smi})")
+        del state, step
+    train_dir = os.path.join(root, "zoo_train") + "/"
+    steps = 2 * SCALE_TRAIN // TrainConfig().batch_size
+    with LogCapture("train", STEP_RE) as capture:
+        state, seconds, _ = run_binary("12b train SingleHiddenLayerModelDropout", train_cli.main, [
+            "--train_dir", train_dir, "--num_epochs", "2", "--start_new_model", "true",
+            "--train_data_pattern", os.path.join(root, "scale", "train*.tfrecord"),
+            "--video_level_classifier_model", "SingleHiddenLayerModelDropout",
+            "--dropout", "0.5"],
+            {"lstm_train_fwd": per_step * steps, "lstm_train_bwd": per_step * steps},
+            phase="12")
+    if state.global_step != 2 * steps or len(capture.matches) != steps or not all(
+            math.isfinite(float(v)) for m in capture.matches for v in m[1:]):
+        raise AssertionError(f"12b cli.train: step {state.global_step}, {capture.matches}")
+    log(f"[12] 12b cli.train SingleHiddenLayerModelDropout --dropout 0.5, {steps} steps in "
+        f"{seconds:.3f} s: Teacher_Loss / L_REP / L_PRED / L_CE by step " + "; ".join(
+            f"{m[0]}: " + " / ".join(m[1:]) for m in capture.matches))
+    del state
+    shutil.rmtree(train_dir)
+    return {"step_ms": step_ms, "train_launches": per_step * steps}
+
+
+def phase_zoo_aggregated(root: str, smi: str) -> dict:
+    """12c: aggregated shards through cli.finetune, cli.eval and cli.infer
+    --frame_features=False for three video-level models, then
+    cli.train_ensemble and cli.inference_ensemble over their K = 3
+    CSVs, the ensemble's rows on the card against the same head
+    checkpoint run on the CPU."""
+    agg_dir = os.path.join(root, "aggregated")
+    os.makedirs(agg_dir)
+    video_ids = sorted(
+        video.video_id for s in range(AGG_SHARDS)
+        for video in port_data.write_synthetic_aggregated_shard(
+            os.path.join(agg_dir, f"agg-{s:04d}.tfrecord"),
+            num_videos=AGG_VIDEOS // AGG_SHARDS, seed=30 + s))
+    pattern = os.path.join(agg_dir, "agg-*.tfrecord")
+    B = TrainConfig().batch_size
+    steps = AGG_VIDEOS // B
+    top_k = TrainConfig().top_k
+
+    def sorted_rows(path, what):
+        """The CSV's rows by video id (the readers interleave the shards)."""
+        rows = sorted(read_csv(path))
+        if [vid for vid, _ in rows] != video_ids or any(len(p) != top_k for _, p in rows):
+            raise AssertionError(f"{what}: not one row of {top_k} pairs a video")
+        return rows
+
+    preds_dir = os.path.join(root, "aggregated_preds")
+    os.makedirs(preds_dir)
+    rates = {}
+    for name in AGG_MODELS:
+        train_dir = os.path.join(root, f"agg_{name}") + "/"
+        argv = AGG_FLAGS + ["--model", name, "--train_dir", train_dir, "--num_epochs", "1"]
+        _, rates[f"{name} finetune"], rates[f"{name} eval"] = run_finetune_eval(
+            "12c", name, argv, pattern, pattern, steps)
+        out = os.path.join(preds_dir, f"pred_{name}.csv")
+        with LogCapture("infer", INFER_LINE_RE) as capture:
+            _, seconds, _ = run_binary(f"12c infer {name}", infer_cli.main, argv + [
+                "--input_data_pattern", pattern, "--output_file", out], {}, phase="12")
+        done = [(int(n), float(t)) for n, t in capture.matches]
+        sorted_rows(out, f"12c infer {name}")
+        # its own last progress line (elapsed seconds printed to 0.01)
+        rates[f"{name} infer"] = done[-1][0] / max(done[-1][1], 0.01)
+        log(f"[12] 12c cli.infer {name}: {done[-1][0]} videos at {done[-1][1]:.2f} s of "
+            f"its own clock, {rates[name + ' infer']:.1f} videos/s; {seconds:.3f} s for the "
+            f"whole binary ({smi})")
+    for head in ENSEMBLE_HEADS:
+        head_path = os.path.join(root, f"head_{head}.msgpack")
+        argv = AGG_FLAGS + ["--preds_pattern", os.path.join(preds_dir, "pred_*.csv"),
+                            "--head_checkpoint", head_path]
+        _, seconds, _ = run_binary(f"12c train_ensemble {head}", train_ensemble_cli.main,
+                                   argv + ["--model", head, "--num_epochs", "1",
+                                           "--train_data_pattern", pattern], {},
+                                   phase="12")
+        rows = {}
+        for where in ("card", "cpu"):
+            out = os.path.join(root, f"ensemble_{head}_{where}.csv")
+            run_binary(f"12c inference_ensemble {head} ({where})", inference_ensemble_cli.main,
+                       argv + ["--input_data_pattern", pattern, "--output_file", out]
+                       + (["--device", "cpu"] if where == "cpu" else []), {}, phase="12")
+            rows[where] = sorted_rows(out, f"12c inference_ensemble {head}")
+        worst = rows_within(rows["card"], rows["cpu"], TOL_CSV, f"12c {head} card against CPU")
+        log(f"[12] 12c {head} over K = 3 CSVs: trained in {seconds:.3f} s; "
+            f"inference_ensemble rows on the card against the CPU, {len(rows['card'])} "
+            f"videos: max|diff| {worst:.3g} (tolerance {TOL_CSV})")
+    log("[12] 12c aggregated rates, videos/s at batch 256 (finetune after its first step; "
+        "eval; infer): " + "; ".join(
+            f"{name} {rates[name + ' finetune']:.1f}, {rates[name + ' eval']:.1f}, "
+            f"{rates[name + ' infer']:.1f}" for name in AGG_MODELS) + f" ({smi})")
+    return rates
+
+
+def phase_zoo(root: str, smi: str) -> dict:
+    t0 = time.perf_counter()
+    frames = phase_zoo_frames(root, smi)
+    heads = phase_zoo_heads(root, smi)
+    aggregated = phase_zoo_aggregated(root, smi)
+    log(f"[12] phase 12 wall {time.perf_counter() - t0:.1f} s")
+    return {"frames": frames, "aggregated": aggregated, **heads}
+
+
 def jax_package_files():
     """The files under the JAX package's directory (beside this script),
     or None where there is none."""
@@ -1805,16 +2116,23 @@ def main() -> None:
     int8_worst, int8_times = phase_int8_kernel()
     int8_launches = phase_int8_serving(smi)
     phase_routing()
-    phase_pipeline(smi, step_rate)
-    library = phase_library(smi)["student_L1"]
-    phase_gate(smi)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        phase_pipeline(root, smi, step_rate)
+        library = phase_library(smi)["student_L1"]
+        phase_gate(smi)
+        zoo = phase_zoo(root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "msgpack", "efficientvideoclassification_youtube8m_tpu"))
     if loaded:
         raise AssertionError(f"the port imported {loaded}")
     if jax_package_files() != jax_files:
         raise AssertionError("the run wrote into the JAX package's directory")
-    log("[11] no module of jax, flax, msgpack or the JAX package loaded; nothing "
+    log("[12] no module of jax, flax, msgpack or the JAX package loaded; nothing "
         "written into the JAX package's directory")
     # The line's times are at student_L1 (T=6, B=1280, H=1024), the
     # student's first layer at batch 256. "ms" and "plain_ms" are eager
@@ -1844,6 +2162,9 @@ def main() -> None:
             "replaces": PALLAS + line, "launches": count, "max_abs_err": err,
             "ms": k_ms, "graph_ms": replay_ms, "plain_ms": p_ms, "bound_ms": b["ms"],
             "bound_by": b["bound_by"], "library_ms": lib_ms, "port_layer_ms": layer_ms})
+        if name.startswith("lstm_train"):
+            # the launches of phase 12b's cli.train (SingleHiddenLayerModelDropout)
+            kernels[-1]["zoo_train_launches"] = zoo["train_launches"]
     log(f"[1] card: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -12,14 +12,16 @@ and the tools around them:
   infer               -> Kaggle-CSV inference (bf16 or --quantize int8)
   inference_bias      -> inference_bias.py (a rescaled bias tensor)
   max_ensemble        -> max_ensemble.py (per-label max of CSVs)
+  train_ensemble      -> an ensemble head trained over K CSVs
+  inference_ensemble  -> inference_ensemble.py (a learned head over K CSVs)
   inspect_checkpoint  -> inspect_checkpoint_myfile.py
   hash_check          -> hash_check_redownload.py (shard md5s)
 
 Run as `python -m efficientvideoclassification_youtube8m_torch.cli.<name>`
 with the JAX package's flags; `--device cpu` runs on the CPU, the default
-`/gpu:0` on the first CUDA device. `inference_ensemble`, `train_ensemble`
-and `export_tf` are not ported yet: their modules raise
-NotImplementedError naming the ROADMAP Queue 1 item they wait for.
+`/gpu:0` on the first CUDA device. `export_tf` is not ported yet: its
+module raises NotImplementedError naming the ROADMAP Queue 1 item it
+waits for.
 """
 
 

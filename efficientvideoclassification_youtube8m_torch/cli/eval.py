@@ -1,5 +1,5 @@
 """Finetuned-student evaluator (port of the JAX package's cli/eval.py,
-frame-level path, single process on one device).
+single process on one device).
 
 The reference's eval_finetune.py: student-only eval, epoch-level
 GAP/mAP/Hit@1/PERR, waiting for new checkpoints unless --run_once. The
@@ -7,7 +7,9 @@ loader strides the frames to every_n at the parser. In bf16 on a CUDA
 device the recurrences run in the forward-only kernel
 (`--use_pallas_inference`, default on); `--quantize int8` quantizes each
 restored student once and evaluates the int8 forward, whose recurrences
-run in the int8 kernel on a CUDA device.
+run in the int8 kernel on a CUDA device. `--frame_features=False`
+evaluates a video-level model on pre-aggregated Examples
+(eval_finetune.py:298-302).
 """
 
 from __future__ import annotations
@@ -48,10 +50,9 @@ def evaluate(args):
     distributed.initialize()
     flags_lib.check_ported(args)
     cfg = flags_lib.config_from_args(args)
-    if not args.frame_features:
-        raise NotImplementedError(
-            "--frame_features=False (video-level models on aggregated "
-            "Examples) is not ported yet (ROADMAP Queue 1, the model zoo and losses)")
+    aggregated = not args.frame_features
+    if args.quantize == "int8" and aggregated:
+        raise ValueError("--quantize int8 is the frame-level student path")
     flags_lib.resolve_steps_per_dispatch(args, logger=logger)
     device = flags_lib.resolve_device(args)
     # parameters only: the optimizer slots are neither allocated nor read
@@ -61,7 +62,10 @@ def evaluate(args):
         step_fn = build_quantized_eval_step(cfg, top_k=args.top_k,
                                             host_subsampled=True)
     else:
-        step_fn = build_eval_step(cfg, top_k=args.top_k, host_subsampled=True)
+        # frame path: the loader strides the frames at the parser
+        step_fn = build_eval_step(cfg, top_k=args.top_k,
+                                  host_subsampled=not aggregated,
+                                  aggregated=aggregated)
     writer = summary_lib.SummaryWriter(os.path.join(cfg.train_dir, "eval"))
     results = []
 
@@ -74,7 +78,9 @@ def evaluate(args):
                 state.student, cfg.total_feature_size, cfg.lstm_cells,
                 cfg.lstm_layers, device=device)
         results.append(run_eval_epoch(
-            cfg, args, eval_loader(cfg, args, frame_stride=cfg.every_n), device,
+            cfg, args, eval_loader(cfg, args,
+                                   frame_stride=1 if aggregated else cfg.every_n,
+                                   aggregated=aggregated), device,
             lambda f, l, n: step_fn(params, f, l, n), state.global_step, writer,
             logger))
 

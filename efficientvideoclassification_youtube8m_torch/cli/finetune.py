@@ -1,12 +1,16 @@
 """Student-only finetuner (port of the JAX package's cli/finetune.py,
-frame-level path, single process on one device).
+single process on one device).
 
 The reference's train_finetune.py: single-tower training of the student
 (CE + reg) resuming from the converted checkpoint in --train_dir (the
-finetune directory, per run_finetune.sh). The loader strides the frames
-to every_n at the parser, so only the student's frames are decoded and
-copied. In bf16 on a CUDA device the recurrences run in the train
-kernels (`--lstm_pallas_train`, default on).
+finetune directory, per run_finetune.sh), or from a new model with
+--start_new_model, which is how the single-tower models of the zoo
+(DBoF, NetVLAD, ...) are trained. The loader strides the frames to
+every_n at the parser, so only the student's frames are decoded and
+copied. In bf16 on a CUDA device the recurrences of
+HierarchicalLstmModel run in the train kernels (`--lstm_pallas_train`,
+default on). `--frame_features=False` trains a video-level model on
+pre-aggregated Examples (train_finetune.py:514-518).
 """
 
 from __future__ import annotations
@@ -32,7 +36,10 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
 )
 from efficientvideoclassification_youtube8m_torch.train.step import build_finetune_step
 from efficientvideoclassification_youtube8m_torch.utils import summary as summary_lib
-from efficientvideoclassification_youtube8m_torch.data import FrameDataLoader
+from efficientvideoclassification_youtube8m_torch.data import (
+    AggregatedDataLoader,
+    FrameDataLoader,
+)
 from efficientvideoclassification_youtube8m_torch.metrics import train_step_metrics
 
 logger = logging.getLogger("finetune")
@@ -42,10 +49,7 @@ def finetune(args):
     distributed.initialize()
     flags_lib.check_ported(args)
     cfg = flags_lib.config_from_args(args)
-    if not args.frame_features:
-        raise NotImplementedError(
-            "--frame_features=False (video-level models on aggregated "
-            "Examples) is not ported yet (ROADMAP Queue 1, the model zoo and losses)")
+    aggregated = not args.frame_features
     device = flags_lib.resolve_device(args)
     optimizer = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
     ckpt = None if args.start_new_model else latest_checkpoint(cfg.train_dir)
@@ -67,12 +71,14 @@ def finetune(args):
     logger.info("%s", flags_lib.param_names(state.student, "model_student"))
     logger.info("Device: %s", device)
     step_fn = build_finetune_step(cfg, optimizer, top_k=args.top_k,
-                                  host_subsampled=True)
+                                  host_subsampled=not aggregated,
+                                  aggregated=aggregated)
     if ckpt:
         logger.info("Resuming student from %s", ckpt)
         restore_checkpoint(ckpt, state)
 
-    loader = FrameDataLoader(
+    loader_cls = AggregatedDataLoader if aggregated else FrameDataLoader
+    loader = loader_cls(
         cfg.train_data_pattern,
         batch_size=cfg.batch_size,
         feature_names=cfg.feature_names_list,
@@ -88,7 +94,7 @@ def finetune(args):
         use_native=cfg.use_native_io,
         bagging=args.bagging,
         # the student reads every every_n-th frame: stride at the parser
-        frame_stride=cfg.every_n,
+        frame_stride=1 if aggregated else cfg.every_n,
     )
     writer = summary_lib.SummaryWriter(cfg.train_dir)
     start_time = time.time()

@@ -5,7 +5,8 @@ DEFINE_* blocks (train.py:27-99, frame_level_models.py:16-47,
 video_level_models.py:14-19), as the JAX package's parser does, so
 reference invocations port 1:1. Beside the parser: the parameter-list
 dump, `--steps_per_dispatch` resolution, the device the flags name, and
-the check that refuses what the port does not cover yet.
+the check that refuses what the port does not cover yet (orbax and
+the parallel paths).
 """
 
 from __future__ import annotations
@@ -219,15 +220,7 @@ def resolve_device(args: argparse.Namespace) -> torch.device:
 
 def check_ported(args: argparse.Namespace) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a flag the
-    port does not cover yet: the model zoo beyond the flagship, orbax
-    checkpoints and the parallel paths."""
-    if (args.model != "HierarchicalLstmModel"
-            or args.video_level_classifier_model != "MoeModel"):
-        raise NotImplementedError(
-            f"--model {args.model} with --video_level_classifier_model "
-            f"{args.video_level_classifier_model}: the port covers the "
-            "flagship HierarchicalLstmModel + MoeModel; the rest of the zoo "
-            "is ROADMAP Queue 1, the model zoo and losses")
+    port does not cover yet: orbax checkpoints and the parallel paths."""
     if args.checkpoint_format == "orbax":
         raise NotImplementedError(
             "--checkpoint_format orbax is not ported yet (ROADMAP Queue 1, "

@@ -1,6 +1,5 @@
 """Inference: student checkpoint -> Kaggle CSV (port of the JAX package's
-cli/infer.py, frame-level path, one batch per launch, single process on
-one device).
+cli/infer.py, one batch per launch, single process on one device).
 
 The core of the reference's inference binaries
 (`inference_ensemble.py:113-204` minus the ensemble feed): stream test
@@ -9,7 +8,9 @@ The loader strides the frames to every_n at the parser. In bf16 on a
 CUDA device the recurrences run in the forward-only kernel
 (`--use_pallas_inference`, default on); `--quantize int8` quantizes the
 restored student once and runs the int8 forward, whose recurrences run in
-the int8 kernel on a CUDA device.
+the int8 kernel on a CUDA device. `--frame_features=False` reads
+pre-aggregated Examples into a video-level model
+(inference_bias.py:195-199).
 
 --alpha_bias/--tensor_name reproduce `inference_bias.py:129,158-168`:
 before running, the named bias parameter b is replaced by
@@ -29,8 +30,10 @@ from torch import nn
 
 from efficientvideoclassification_youtube8m_torch.cli import flags as flags_lib
 from efficientvideoclassification_youtube8m_torch.cli.loop import HostFetch, device_prefetch
-from efficientvideoclassification_youtube8m_torch.cli.validate import EVAL_FIELDS
-from efficientvideoclassification_youtube8m_torch.data import FrameDataLoader
+from efficientvideoclassification_youtube8m_torch.cli.validate import (
+    EVAL_FIELDS,
+    eval_loader,
+)
 from efficientvideoclassification_youtube8m_torch.ensemble import (
     format_lines,
     write_predictions_csv,
@@ -81,18 +84,17 @@ def inference(args) -> None:
     distributed.initialize()
     flags_lib.check_ported(args)
     cfg = flags_lib.config_from_args(args)
-    if not args.frame_features:
-        raise NotImplementedError(
-            "--frame_features=False (video-level models on aggregated "
-            "Examples) is not ported yet (ROADMAP Queue 1, the model zoo "
-            "and losses)")
+    aggregated = not args.frame_features
     quantize = getattr(args, "quantize", "none")
-    if quantize == "int8" and (
-            cfg.model != "HierarchicalLstmModel"
-            or cfg.video_level_classifier_model != "MoeModel"):
-        raise ValueError(
-            "--quantize int8 covers the flagship HierarchicalLstmModel "
-            "+ MoeModel configuration")
+    if quantize == "int8":
+        # before the parameters are touched, as in the JAX package
+        if aggregated:
+            raise ValueError("--quantize int8 is the frame-level student path")
+        if (cfg.model != "HierarchicalLstmModel"
+                or cfg.video_level_classifier_model != "MoeModel"):
+            raise ValueError(
+                "--quantize int8 covers the flagship HierarchicalLstmModel "
+                "+ MoeModel configuration")
     # no auto mode here, as in the JAX package: 0 is 1, and K > 1 (rows
     # from the device top-k, whose tie order differs) is not ported
     if getattr(args, "steps_per_dispatch", 1) == 0:
@@ -122,24 +124,12 @@ def inference(args) -> None:
         step_fn = build_quantized_eval_step(cfg, top_k=args.top_k,
                                             host_subsampled=True)
     else:
-        step_fn = build_eval_step(cfg, top_k=args.top_k, host_subsampled=True)
-
-    loader = FrameDataLoader(
-        args.input_data_pattern,
-        batch_size=cfg.batch_size,
-        feature_names=cfg.feature_names_list,
-        feature_sizes=cfg.feature_sizes_list,
-        max_frames=cfg.max_num_frames,
-        vocab_size=cfg.num_classes,
-        num_readers=cfg.num_readers,
-        deterministic=cfg.deterministic_input,
-        num_epochs=1,
-        shuffle=False,
-        pad_final_batch=True,
-        use_native=cfg.use_native_io,
-        # parse and move only the kept frames
-        frame_stride=cfg.every_n,
-    )
+        step_fn = build_eval_step(cfg, top_k=args.top_k,
+                                  host_subsampled=not aggregated,
+                                  aggregated=aggregated)
+    # frame path: parse and move only the kept frames
+    loader = eval_loader(cfg, args, frame_stride=1 if aggregated else cfg.every_n,
+                         aggregated=aggregated, pattern=args.input_data_pattern)
 
     def rows():
         num_examples_processed = 0

@@ -14,6 +14,7 @@ import os
 import sys
 import time
 from collections import deque
+from typing import Optional
 
 from efficientvideoclassification_youtube8m_torch.cli import flags as flags_lib
 from efficientvideoclassification_youtube8m_torch.cli.loop import HostFetch, device_prefetch
@@ -28,7 +29,10 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
 )
 from efficientvideoclassification_youtube8m_torch.train.step import build_validate_step
 from efficientvideoclassification_youtube8m_torch.utils import summary as summary_lib
-from efficientvideoclassification_youtube8m_torch.data import FrameDataLoader
+from efficientvideoclassification_youtube8m_torch.data import (
+    AggregatedDataLoader,
+    FrameDataLoader,
+)
 from efficientvideoclassification_youtube8m_torch.metrics import EvaluationMetrics
 
 logger = logging.getLogger("validate")
@@ -37,10 +41,13 @@ logger = logging.getLogger("validate")
 EVAL_FIELDS = ("global_step", "dropout_keep_prob")
 
 
-def eval_loader(cfg, args, frame_stride: int = 1) -> FrameDataLoader:
-    """One ordered pass over --eval_data_pattern, the final batch padded."""
-    return FrameDataLoader(
-        args.eval_data_pattern,
+def eval_loader(cfg, args, frame_stride: int = 1, aggregated: bool = False,
+                pattern: Optional[str] = None) -> FrameDataLoader:
+    """One ordered pass over `pattern` (default --eval_data_pattern), the
+    final batch padded; with `aggregated`, of pre-aggregated Examples."""
+    loader_cls = AggregatedDataLoader if aggregated else FrameDataLoader
+    return loader_cls(
+        args.eval_data_pattern if pattern is None else pattern,
         batch_size=cfg.batch_size,
         feature_names=cfg.feature_names_list,
         feature_sizes=cfg.feature_sizes_list,

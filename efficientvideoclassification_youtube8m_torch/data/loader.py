@@ -426,3 +426,48 @@ class FrameDataLoader:
             ids.append(v.video_id)
         ids.extend([""] * pad)
         return FrameBatch(ids, features, labels, num_frames, pad=pad)
+
+
+@dataclasses.dataclass
+class AggregatedBatch:
+    video_ids: List[str]
+    features: np.ndarray  # [B, total_size] float32
+    labels: np.ndarray  # [B, vocab] bool
+    pad: int = 0
+
+    @property
+    def num_frames(self) -> np.ndarray:
+        """All-ones placeholder, like the aggregated reader's
+        `tf.ones([...])` fourth output (readers.py:112) — lets aggregated
+        batches ride the same (features, labels, num_frames) step/prefetch
+        plumbing as frame batches; the aggregated step ignores it."""
+        return np.ones((self.features.shape[0],), np.int32)
+
+
+class AggregatedDataLoader(FrameDataLoader):
+    """Video-level (pre-aggregated Example) loader — the rebuild of
+    `YT8MAggregatedFeatureReader` (readers.py:53-112). Reuses the frame
+    loader's thread/shuffle machinery; only parsing + assembly differ
+    (the `_iter_file` override never consults the native FRAME parser,
+    whatever `use_native` was passed)."""
+
+    def _iter_file(self, path: str):
+        for record in TFRecordReader(path):
+            yield yt8m.parse_aggregated_record(
+                record, self.feature_names, self.feature_sizes
+            )
+
+    def _assemble(self, videos: List, pad: int) -> AggregatedBatch:
+        n = len(videos)
+        B = n + pad
+        features = np.zeros((B, self.total_size), np.float32)
+        labels = np.zeros((B, self.vocab_size), bool)
+        ids = []
+        for i, v in enumerate(videos):
+            features[i] = v.features
+            for c in v.labels:
+                if 0 <= c < self.vocab_size:
+                    labels[i, c] = True
+            ids.append(v.video_id)
+        ids.extend([""] * pad)
+        return AggregatedBatch(ids, features, labels, pad=pad)

@@ -1,11 +1,12 @@
 """YT8M dataset records: parse + synthesize.
 
-Mirrors the frame-level reader of `readers.py`
-(`YT8MFrameFeatureReader:114-246`): SequenceExample with context {id:
-bytes, labels: int64 list} and per-frame byte-string features (one
-uint8-quantized vector per frame per feature name). The video-level
-(aggregated) records come with the model zoo (ROADMAP Queue 1, the
-model zoo and losses), which is what reads them.
+Mirrors the two readers of `readers.py`:
+
+  * frame-level (`YT8MFrameFeatureReader:114-246`): SequenceExample with
+    context {id: bytes, labels: int64 list} and per-frame byte-string
+    features (one uint8-quantized vector per frame per feature name).
+  * video-level (`YT8MAggregatedFeatureReader:53-112`): Example with
+    {id, labels} plus fixed-length float feature vectors.
 
 Device-first difference: the frame features stay **uint8** all the way to
 the device; dequantize/normalize run inside the step
@@ -111,6 +112,60 @@ def encode_frame_record(
     return proto.encode_sequence_example(context, feature_lists)
 
 
+@dataclasses.dataclass
+class AggregatedVideo:
+    video_id: str
+    labels: List[int]
+    features: np.ndarray  # [total_feature_size] float32
+
+
+def parse_aggregated_record(
+    record: bytes,
+    feature_names: Sequence[str] = ("mean_rgb", "mean_audio"),
+    feature_sizes: Sequence[int] = (1024, 128),
+) -> AggregatedVideo:
+    features_map = proto.decode_example(record)
+    _, id_vals = features_map.get("id", ("bytes", [b""]))
+    # errors="replace" like the frame path: a corrupt id byte must not
+    # kill the epoch
+    video_id = id_vals[0].decode("utf-8", "replace") if id_vals else ""
+    _, label_vals = features_map.get("labels", ("int64", []))
+    parts = []
+    for name, size in zip(feature_names, feature_sizes):
+        _, vals = features_map.get(name, ("float", [0.0] * size))
+        arr = np.asarray(vals, np.float32)
+        if arr.shape[0] != size:
+            # validate PER FEATURE: wrong lengths that happen to sum to
+            # the total would otherwise concatenate into silently
+            # misaligned columns (audio bytes in rgb positions)
+            raise IOError(
+                f"aggregated record {video_id!r}: feature {name!r} has "
+                f"{arr.shape[0]} values, expected {size} "
+                "(--feature_names/--feature_sizes mismatch?)")
+        parts.append(arr)
+    return AggregatedVideo(
+        video_id, [int(v) for v in label_vals], np.concatenate(parts)
+    )
+
+
+def encode_aggregated_record(
+    video_id: str,
+    labels: Sequence[int],
+    features: np.ndarray,
+    feature_names: Sequence[str] = ("mean_rgb", "mean_audio"),
+    feature_sizes: Sequence[int] = (1024, 128),
+) -> bytes:
+    fmap = {
+        "id": ("bytes", [video_id.encode("utf-8")]),
+        "labels": ("int64", list(labels)),
+    }
+    off = 0
+    for name, size in zip(feature_names, feature_sizes):
+        fmap[name] = ("float", [float(x) for x in features[off : off + size]])
+        off += size
+    return proto.encode_example(fmap)
+
+
 def read_frame_file(
     path: str,
     feature_names: Sequence[str] = ("rgb", "audio"),
@@ -122,6 +177,34 @@ def read_frame_file(
     the C++ loader in data/native is the production path)."""
     for record in TFRecordReader(path, verify_crc=verify_crc):
         yield parse_frame_record(record, feature_names, feature_sizes, max_frames)
+
+
+def write_synthetic_aggregated_shard(
+    path: str,
+    num_videos: int,
+    seed: int = 0,
+    feature_names: Sequence[str] = ("mean_rgb", "mean_audio"),
+    feature_sizes: Sequence[int] = (1024, 128),
+    vocab_size: int = 4716,
+    mean_labels: float = 3.4,
+) -> List[AggregatedVideo]:
+    """Generate a video-level (pre-aggregated) synthetic shard."""
+    rng = np.random.default_rng(seed)
+    total = sum(feature_sizes)
+    truth = []
+    with TFRecordWriter(path) as w:
+        for i in range(num_videos):
+            feats = rng.normal(size=(total,)).astype(np.float32)
+            n_labels = max(1, int(rng.poisson(mean_labels)))
+            labels = sorted(
+                int(x) for x in rng.choice(vocab_size, size=min(n_labels, 20),
+                                           replace=False)
+            )
+            vid = f"agg{seed:02d}_{i:05d}"
+            w.write(encode_aggregated_record(vid, labels, feats, feature_names,
+                                             feature_sizes))
+            truth.append(AggregatedVideo(vid, labels, feats))
+    return truth
 
 
 def write_learnable_frame_shard(

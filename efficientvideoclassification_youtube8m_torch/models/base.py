@@ -3,8 +3,12 @@ models/base.py).
 
 The reference selects models by flag string; here the same strings
 resolve through an explicit registry of `nn.Module` classes. A model's
-`forward` returns a dict with "predictions" [B, vocab] and
-"regularization_loss", like the JAX `apply`.
+constructor takes the JAX `init`'s arguments (plus `key` and `device`)
+and draws the JAX init's weights from `key`; its `forward` returns a
+dict with "predictions" [B, vocab] and "regularization_loss", like the
+JAX `apply`, and optionally "loss" (a model-supplied training loss) and
+"updated_stats" (batch-norm moving statistics to write back after the
+optimizer update).
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from efficientvideoclassification_youtube8m_torch.ops import prng
 
@@ -47,6 +52,31 @@ def glorot_uniform(shape, key: Optional[prng.Key] = None,
     return prng.uniform(key or prng.prng_key(0), shape, -limit, limit, device)
 
 
+class Params(nn.Module):
+    """A named group of parameters, so that `state_dict` keys follow the
+    JAX pytree paths ("gates.w", "experts.b", ...)."""
+
+    def __init__(self, **tensors: torch.Tensor):
+        super().__init__()
+        for name, value in tensors.items():
+            self.register_parameter(name, nn.Parameter(value))
+
+
+def dense_init(in_dim: int, out_dim: int, key: Optional[prng.Key] = None,
+               device=None, use_bias: bool = True) -> Params:
+    """The JAX `dense_init`: a glorot-uniform ``w [in, out]`` drawn from
+    `key` and a zero ``b [out]``."""
+    tensors = {"w": glorot_uniform((in_dim, out_dim), key, device)}
+    if use_bias:
+        tensors["b"] = torch.zeros(out_dim, device=device)
+    return Params(**tensors)
+
+
+def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The JAX `dense(p, x)` of a `dense_init` group."""
+    return dense(p.w, x, getattr(p, "b", None))
+
+
 def dense(w: torch.Tensor, x: torch.Tensor, b: Optional[torch.Tensor] = None
           ) -> torch.Tensor:
     """``x @ w (+ b)`` over the last axis with a float32 result. Operands
@@ -62,3 +92,13 @@ def dense(w: torch.Tensor, x: torch.Tensor, b: Optional[torch.Tensor] = None
 def l2_loss(x: torch.Tensor) -> torch.Tensor:
     """`tf.nn.l2_loss`: sum(x**2) / 2."""
     return 0.5 * torch.sum(torch.square(x))
+
+
+def dropout(x: torch.Tensor, keep_prob, key: prng.Key) -> torch.Tensor:
+    """`tf.nn.dropout` with keep-prob semantics, the JAX `dropout`: kept
+    units scaled by 1/keep_prob, the mask ``bernoulli(key, keep_prob)``
+    drawn as `jax.random` draws it. `keep_prob` is a float or a 0-d
+    tensor, used in float32."""
+    keep = torch.as_tensor(keep_prob, dtype=torch.float32)
+    mask = prng.bernoulli(key, keep, x.shape, device=x.device)
+    return torch.where(mask, x / keep, 0.0)

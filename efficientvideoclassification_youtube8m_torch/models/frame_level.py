@@ -1,7 +1,11 @@
-"""Frame-level models (port of the JAX package's models/frame_level.py).
-Only the flagship `HierarchicalLstmModel` so far.
+"""Frame-level models (port of the JAX package's models/frame_level.py):
+the flagship `HierarchicalLstmModel`, `FrameLevelLogisticModel`,
+`DbofModel` (with batch norm), `NetVLADModel` and `NeXtVLADModel`, and
+the frame samplers and pooling they use. Each takes [B, T, D] frames and
+`num_frames` [B], and swallows the keywords it does not read (the LSTM
+kernel switches among them).
 
-The reference runs one `dynamic_rnn` per chunk of frames sharing one
+The flagship: the reference runs one `dynamic_rnn` per chunk of frames sharing one
 2-layer LSTM, stacks the chunk final states, and runs a second 2-layer
 LSTM over them. Here the chunks are folded into the batch axis —
 [B, T, D] -> [B*C, T/C, D] — so L1 is one scan whose recurrent product
@@ -11,13 +15,18 @@ has batch B*C, and L2 is one scan over the C stacked chunk states.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
 from efficientvideoclassification_youtube8m_torch.models.base import (
+    Params,
+    dense_init,
     get_model,
+    l2_loss,
+    linear,
     register_model,
 )
 from efficientvideoclassification_youtube8m_torch.ops import prng
@@ -31,6 +40,12 @@ from efficientvideoclassification_youtube8m_torch.ops.lstm import (
     init_multi_lstm,
     multi_lstm_scan,
 )
+
+
+def _check_classifier(model: nn.Module, classifier: Optional[str]) -> None:
+    if classifier is not None and classifier != model.classifier.name:
+        raise ValueError(f"the module's classifier is a "
+                         f"{model.classifier.name}, not {classifier}")
 
 
 @register_model("HierarchicalLstmModel")
@@ -77,10 +92,9 @@ class HierarchicalLstmModel(nn.Module):
         through the differentiable train kernels (ops/kernels/
         lstm_train.py, bf16 whatever `compute_dtype` says, as the JAX
         `pallas_train` path); otherwise the plain scan in
-        `compute_dtype`."""
-        if classifier is not None and classifier != self.classifier.name:
-            raise ValueError(f"the module's classifier is a "
-                             f"{self.classifier.name}, not {classifier}")
+        `compute_dtype`. The other keywords (`labels`,
+        `dropout_keep_prob`, `rng`, the head's sizes) go to the head."""
+        _check_classifier(self, classifier)
         B, T, D = model_input.shape
         if T % num_chunks:
             raise ValueError(f"{T} frames do not split into {num_chunks} chunks")
@@ -114,3 +128,307 @@ class HierarchicalLstmModel(nn.Module):
                                  **classifier_kwargs)
         result["state"] = state
         return result
+
+
+@register_model("FrameLevelLogisticModel")
+class FrameLevelLogisticModel(nn.Module):
+    """Mean-pool over the true frames -> sigmoid FC
+    (frame_level_models.py:50-83)."""
+
+    def __init__(self, input_size: int, vocab_size: int,
+                 key: Optional[prng.Key] = None, device=None, **_):
+        super().__init__()
+        self.fc = dense_init(input_size, vocab_size, key, device)
+
+    def forward(self, model_input, num_frames, l2_penalty: float = 1e-8, **_):
+        avg_pooled = (torch.sum(model_input, dim=1)
+                      / num_frames.to(torch.float32)[:, None])
+        out = torch.sigmoid(linear(self.fc, avg_pooled))
+        return {"predictions": out,
+                "regularization_loss": l2_penalty * l2_loss(self.fc.w)}
+
+
+def _take_frames(model_input: torch.Tensor, frame_index: torch.Tensor):
+    """model_input[b, frame_index[b, s]] -> [B, S, D]."""
+    index = frame_index.to(torch.int64)[:, :, None]
+    return torch.gather(model_input, 1,
+                        index.expand(-1, -1, model_input.shape[2]))
+
+
+def sample_random_frames(model_input, num_frames, num_samples: int,
+                         rng: prng.Key):
+    """Uniform random frame indices below num_frames
+    (model_utils.py:39-58), drawn from `rng` as the JAX sampler draws."""
+    u = prng.uniform(rng, (model_input.shape[0], num_samples), 0.0, 1.0,
+                     device=model_input.device)
+    frame_index = (u * num_frames.to(torch.float32)[:, None]).to(torch.int32)
+    return _take_frames(model_input, frame_index)
+
+
+def sample_random_sequence(model_input, num_frames, num_samples: int,
+                           rng: prng.Key):
+    """A random contiguous window of num_samples frames
+    (model_utils.py:11-36)."""
+    nf = num_frames.to(torch.int32)
+    offsets = torch.arange(num_samples, dtype=torch.int32,
+                           device=model_input.device)[None, :]
+    max_start = torch.clamp(nf - num_samples, min=0)
+    u = prng.uniform(rng, (model_input.shape[0], 1), 0.0, 1.0,
+                     device=model_input.device)
+    start = (u * (max_start + 1).to(torch.float32)[:, None]).to(torch.int32)
+    frame_index = torch.minimum(start + offsets, nf[:, None] - 1)
+    return _take_frames(model_input, frame_index)
+
+
+def sample_even_frames(model_input, num_frames, num_samples: int):
+    """Deterministic evenly spaced frame indices strictly below
+    num_frames: the eval-time counterpart of sample_random_frames, which
+    never reaches the padding rows (they stop being zero after batch
+    norm and would enter DBoF's pooling)."""
+    u = ((torch.arange(num_samples, dtype=torch.float32,
+                       device=model_input.device) + 0.5) / num_samples)
+    frame_index = (u[None, :] * num_frames.to(torch.float32)[:, None]
+                   ).to(torch.int32)
+    return _take_frames(model_input, frame_index)
+
+
+def frame_pooling(frames: torch.Tensor, method: str) -> torch.Tensor:
+    """average / max / none pooling over the frame axis
+    (model_utils.py:60-83). `max` spreads its gradient evenly over ties,
+    as the JAX reduction does."""
+    if method == "average":
+        return torch.mean(frames, dim=1)
+    if method == "max":
+        return torch.amax(frames, dim=1)
+    if method == "none":
+        return frames.reshape(-1, frames.shape[2])
+    raise ValueError(f"Unrecognized pooling method: {method}")
+
+
+def _bn_init(dim: int, device=None) -> Params:
+    """slim.batch_norm's variables. The moving statistics are parameters,
+    as they are leaves of the JAX params tree (with optimizer slots, in
+    the checkpoints): they get a zero gradient and the train steps write
+    the forward's new values over them after the update."""
+    return Params(scale=torch.ones(dim, device=device),
+                  offset=torch.zeros(dim, device=device),
+                  moving_mean=torch.zeros(dim, device=device),
+                  moving_var=torch.ones(dim, device=device))
+
+
+def _bn_apply(p: Params, x: torch.Tensor, is_training: bool,
+              momentum: float = 0.999, eps: float = 1e-3):
+    """slim.batch_norm: the batch's mean and population variance in
+    training (the moving averages decayed by `momentum` toward them),
+    the moving statistics at inference. Returns (normalized, the new
+    moving statistics by name, detached; empty at inference)."""
+    if is_training:
+        mean = torch.mean(x, dim=0)
+        var = torch.var(x, dim=0, correction=0)
+        new = {"moving_mean": momentum * p.moving_mean + (1 - momentum) * mean,
+               "moving_var": momentum * p.moving_var + (1 - momentum) * var}
+        new = {name: value.detach() for name, value in new.items()}
+    else:
+        mean, var, new = p.moving_mean, p.moving_var, {}
+    inv = torch.rsqrt(var + eps)
+    return (x - mean) * inv * p.scale + p.offset, new
+
+
+@register_model("DbofModel")
+class DbofModel(nn.Module):
+    """Deep Bag-of-Frames (frame_level_models.py:85-195): sample frames,
+    BN -> cluster FC -> relu6 -> frame pooling -> hidden FC -> BN ->
+    relu6 -> video-level classifier. In training the forward returns the
+    batch-norm moving statistics it computed under "updated_stats"
+    ({"input_bn.moving_mean": ..., ...}). The trunk runs in float32; the
+    head gets `compute_dtype` and the other keywords."""
+
+    def __init__(self, input_size: int, vocab_size: int,
+                 cluster_size: int = 8192, hidden_size: int = 1024,
+                 classifier: str = "MoeModel", add_batch_norm: bool = True,
+                 classifier_kwargs: Optional[dict] = None,
+                 key: Optional[prng.Key] = None, device=None, **_):
+        super().__init__()
+        k1, k2, k3, k4, k5 = prng.split(key or prng.prng_key(0), 5)
+        self.add_batch_norm = add_batch_norm
+        self.cluster = Params(w=(1.0 / math.sqrt(input_size)) * prng.normal(
+            k1, (input_size, cluster_size), device))
+        self.hidden1 = Params(w=(1.0 / math.sqrt(cluster_size)) * prng.normal(
+            k2, (cluster_size, hidden_size), device))
+        self.classifier = get_model(classifier)(
+            hidden_size, vocab_size, key=k3, device=device,
+            **(classifier_kwargs or {}))
+        if add_batch_norm:
+            self.input_bn = _bn_init(input_size, device)
+            self.cluster_bn = _bn_init(cluster_size, device)
+            self.hidden1_bn = _bn_init(hidden_size, device)
+        else:
+            # the no-BN variant (frame_level_models.py:150-162,175-187):
+            # biases replace the norms, with the reference's stddevs
+            self.cluster.register_parameter("b", nn.Parameter(
+                (1.0 / math.sqrt(input_size)) * prng.normal(k4, (cluster_size,), device)))
+            self.hidden1.register_parameter("b", nn.Parameter(
+                0.01 * prng.normal(k5, (hidden_size,), device)))
+
+    def forward(self, model_input, num_frames=None, iterations: int = 30,
+                sample_random: bool = True, pooling_method: str = "max",
+                classifier: Optional[str] = None,
+                add_batch_norm: Optional[bool] = None,
+                is_training: bool = True, rng: Optional[prng.Key] = None,
+                **classifier_kwargs) -> Dict[str, Any]:
+        _check_classifier(self, classifier)
+        if add_batch_norm is not None and add_batch_norm != self.add_batch_norm:
+            raise ValueError(f"the module was built with add_batch_norm="
+                             f"{self.add_batch_norm}")
+        # the head gets its own dropout key; the sampling stream stays on
+        # `rng` (JAX frame_level.py:333)
+        cls_rng = None if rng is None else prng.fold_in(rng, 1)
+        if rng is not None:
+            sampler = sample_random_frames if sample_random else sample_random_sequence
+            model_input = sampler(model_input, num_frames, iterations, rng)
+        elif num_frames is not None:
+            # eval: deterministic, still strictly below num_frames
+            model_input = sample_even_frames(model_input, num_frames, iterations)
+        max_frames, feature_size = model_input.shape[1], model_input.shape[2]
+        x = model_input.reshape(-1, feature_size)
+
+        updated = {}
+
+        def norm(name, value):
+            value, new = _bn_apply(getattr(self, name), value, is_training)
+            updated.update({f"{name}.{k}": v for k, v in new.items()})
+            return value
+
+        if self.add_batch_norm:
+            x = norm("input_bn", x)
+        act = linear(self.cluster, x)
+        if self.add_batch_norm:
+            act = norm("cluster_bn", act)
+        act = torch.clamp(act, 0.0, 6.0)  # relu6
+        act = frame_pooling(act.reshape(-1, max_frames, act.shape[-1]),
+                            pooling_method)
+        act = linear(self.hidden1, act)
+        if self.add_batch_norm:
+            act = norm("hidden1_bn", act)
+        act = torch.clamp(act, 0.0, 6.0)
+        result = self.classifier(act, rng=cls_rng, **classifier_kwargs)
+        if updated:
+            result["updated_stats"] = updated
+        return result
+
+
+def _frame_mask(num_frames, T: int, device=None) -> torch.Tensor:
+    """[B, T, 1] float mask of the true frames."""
+    t = torch.arange(T, dtype=torch.int32, device=device)[None, :]
+    return (t < num_frames.to(torch.int32)[:, None]).to(torch.float32)[:, :, None]
+
+
+def _l2_rows(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x * rsqrt(max(sum(x^2), 1e-12)) along `dim`."""
+    return x * torch.rsqrt(torch.clamp(torch.sum(x * x, dim=dim, keepdim=True),
+                                       min=1e-12))
+
+
+def _vlad_tail(model: nn.Module, vlad: torch.Tensor, classifier_kwargs,
+               reg_weights, l2_penalty: float) -> Dict[str, Any]:
+    """Intra-normalize the [B, K, d] code per cluster, flatten, l2, hidden
+    FC with relu, the head; the head's regularization plus the trunk's."""
+    flat = _l2_rows(_l2_rows(vlad, 2).reshape(vlad.shape[0], -1), 1)
+    act = torch.relu(linear(model.hidden, flat))
+    result = model.classifier(act, **classifier_kwargs)
+    result["regularization_loss"] = (
+        result.get("regularization_loss", 0.0)
+        + l2_penalty * sum(l2_loss(w) for w in reg_weights))
+    return result
+
+
+@register_model("NetVLADModel")
+class NetVLADModel(nn.Module):
+    """NetVLAD aggregation (the reference stubs it,
+    frame_level_models.py:341-347): soft-assign each true frame to K
+    clusters, aggregate the assignment-weighted residuals to the cluster
+    centers, intra-normalize per cluster, flatten, l2-normalize, hidden
+    FC, video-level classifier. The trunk runs in float32 and consumes
+    `l2_penalty` (the head keeps its own default)."""
+
+    def __init__(self, input_size: int, vocab_size: int,
+                 vlad_clusters: int = 64, hidden_size: int = 1024,
+                 classifier: str = "MoeModel",
+                 classifier_kwargs: Optional[dict] = None,
+                 key: Optional[prng.Key] = None, device=None, **_):
+        super().__init__()
+        k1, k2, k3, k4 = prng.split(key or prng.prng_key(0), 4)
+        self.assign = dense_init(input_size, vlad_clusters, k1, device)
+        self.centers = nn.Parameter((1.0 / math.sqrt(input_size)) * prng.normal(
+            k2, (vlad_clusters, input_size), device))
+        self.hidden = dense_init(vlad_clusters * input_size, hidden_size, k3, device)
+        self.classifier = get_model(classifier)(
+            hidden_size, vocab_size, key=k4, device=device,
+            **(classifier_kwargs or {}))
+
+    def forward(self, model_input, num_frames, classifier: Optional[str] = None,
+                l2_penalty: float = 1e-8, **classifier_kwargs) -> Dict[str, Any]:
+        _check_classifier(self, classifier)
+        T = model_input.shape[1]
+        mask = _frame_mask(num_frames, T, model_input.device)  # [B, T, 1]
+        assign = torch.softmax(linear(self.assign, model_input), dim=-1) * mask
+        # vlad[b,k,d] = sum_t a[b,t,k] x[b,t,d] - (sum_t a[b,t,k]) c[k,d]
+        weighted = torch.einsum("btk,btd->bkd", assign, model_input)
+        a_sum = torch.sum(assign, dim=1)  # [B, K]
+        vlad = weighted - a_sum[:, :, None] * self.centers[None]
+        return _vlad_tail(self, vlad, classifier_kwargs,
+                          (self.assign.w, self.hidden.w), l2_penalty)
+
+
+@register_model("NeXtVLADModel")
+class NeXtVLADModel(nn.Module):
+    """NeXtVLAD (Lin et al. 2018), a grouped, attention-gated NetVLAD
+    (the reference stubs it, frame_level_models.py:349-355): expand D to
+    expansion*D, split into G groups, a sigmoid attention per (frame,
+    group), one soft assignment over K clusters shared by the groups
+    (its logits [B, T, G, K], group-major, as the JAX weight columns
+    are), grouped residuals aggregated into a [K, expansion*D/G] code,
+    then as NetVLAD."""
+
+    def __init__(self, input_size: int, vocab_size: int,
+                 vlad_clusters: int = 64, expansion: int = 2, groups: int = 8,
+                 hidden_size: int = 1024, classifier: str = "MoeModel",
+                 classifier_kwargs: Optional[dict] = None,
+                 key: Optional[prng.Key] = None, device=None, **_):
+        super().__init__()
+        if (expansion * input_size) % groups:
+            raise ValueError(f"expansion {expansion} x input {input_size} does "
+                             f"not split into {groups} groups")
+        k1, k2, k3, k4, k5, k6 = prng.split(key or prng.prng_key(0), 6)
+        expanded = expansion * input_size
+        group_dim = expanded // groups
+        self.groups = groups
+        self.expand = dense_init(input_size, expanded, k1, device)
+        self.attention = dense_init(expanded, groups, k2, device)
+        self.assign = dense_init(expanded, groups * vlad_clusters, k3, device)
+        self.centers = nn.Parameter((1.0 / math.sqrt(group_dim)) * prng.normal(
+            k4, (vlad_clusters, group_dim), device))
+        self.hidden = dense_init(vlad_clusters * group_dim, hidden_size, k5, device)
+        self.classifier = get_model(classifier)(
+            hidden_size, vocab_size, key=k6, device=device,
+            **(classifier_kwargs or {}))
+
+    def forward(self, model_input, num_frames, groups: Optional[int] = None,
+                classifier: Optional[str] = None, l2_penalty: float = 1e-8,
+                **classifier_kwargs) -> Dict[str, Any]:
+        _check_classifier(self, classifier)
+        if groups is not None and groups != self.groups:
+            raise ValueError(f"the module has {self.groups} groups, not {groups}")
+        B, T, _ = model_input.shape
+        K, G = self.centers.shape[0], self.groups
+        mask = _frame_mask(num_frames, T, model_input.device)  # [B, T, 1]
+        x = linear(self.expand, model_input)  # [B, T, E]
+        attn = torch.sigmoid(linear(self.attention, x)) * mask  # [B, T, G]
+        assign = torch.softmax(linear(self.assign, x).reshape(B, T, G, K), dim=-1)
+        a = assign * attn[:, :, :, None]  # [B, T, G, K]
+        xg = x.reshape(B, T, G, x.shape[-1] // G)
+        weighted = torch.einsum("btgk,btgd->bkd", a, xg)
+        a_sum = torch.sum(a, dim=(1, 2))  # [B, K]
+        vlad = weighted - a_sum[:, :, None] * self.centers[None]
+        return _vlad_tail(self, vlad, classifier_kwargs,
+                          (self.expand.w, self.assign.w, self.hidden.w), l2_penalty)

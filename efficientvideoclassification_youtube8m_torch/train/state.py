@@ -27,14 +27,28 @@ from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfi
 def init_model(cfg: TrainConfig, key: Optional[prng.Key] = None,
                device=None) -> nn.Module:
     """`cfg.model` at the config's sizes, with the weights the JAX
-    `model.init(key, ...)` draws (key (0, 0) when None)."""
-    return get_model(cfg.model)(
-        cfg.total_feature_size, cfg.num_classes,
+    `model.init(key, ...)` draws (key (0, 0) when None), sized as the
+    JAX `init_distill_state` sizes it: the head by `num_mixtures` (MoE)
+    or `num_hidden_units`; the same two flattened for a video-level
+    `--model` (the aggregated branch); DBoF by its cluster, hidden and
+    batch-norm flags. Every model swallows the sizes it does not read."""
+    classifier_kwargs = (
+        {"num_mixtures": cfg.moe_num_mixtures}
+        if cfg.video_level_classifier_model == "MoeModel"
+        else {"num_hidden_units": cfg.num_hidden_units})
+    kwargs = dict(
         lstm_cells=cfg.lstm_cells, lstm_layers=cfg.lstm_layers,
         classifier=cfg.video_level_classifier_model,
-        classifier_kwargs={"num_mixtures": cfg.moe_num_mixtures},
-        key=key, device=device,
+        classifier_kwargs=classifier_kwargs,
+        num_mixtures=cfg.moe_num_mixtures,
+        num_hidden_units=cfg.num_hidden_units,
     )
+    if cfg.model == "DbofModel":
+        kwargs.update(cluster_size=cfg.dbof_cluster_size,
+                      hidden_size=cfg.dbof_hidden_size,
+                      add_batch_norm=cfg.dbof_add_batch_norm)
+    return get_model(cfg.model)(cfg.total_feature_size, cfg.num_classes,
+                                key=key, device=device, **kwargs)
 
 
 def params_of(module: nn.Module) -> dict:

@@ -18,6 +18,7 @@ optimizer slots) and return it with their metrics.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -27,6 +28,7 @@ from efficientvideoclassification_youtube8m_torch import losses as losses_lib
 from efficientvideoclassification_youtube8m_torch.metrics.eval_util import (
     topk_and_perr_on_device,
 )
+from efficientvideoclassification_youtube8m_torch.ops import prng
 from efficientvideoclassification_youtube8m_torch.ops.preprocess import (
     dequantize,
     l2_normalize,
@@ -51,9 +53,20 @@ Tensors = Dict[str, torch.Tensor]
 
 
 def resolve_label_loss(cfg: TrainConfig) -> Callable:
-    """The label loss from the registry. Only CrossEntropyLoss is ported;
-    the other names raise (ROADMAP Queue 1, the model zoo and losses)."""
-    return losses_lib.get_loss(cfg.label_loss)
+    """The label loss from the registry, with its file-backed or quirk
+    arguments bound once, when the step is built: `PWELoss` under
+    `cfg.faithful_quirks` takes the literal graph's batch-128 reshape;
+    `CrossEntropyLossClassImbalance` reads the per-class counts of
+    `cfg.class_counts_file` (the reference's `counts_tv`, one integer a
+    line)."""
+    fn = losses_lib.get_loss(cfg.label_loss)
+    if cfg.label_loss == "PWELoss" and cfg.faithful_quirks:
+        return functools.partial(fn, faithful_quirks=True)
+    if cfg.label_loss == "CrossEntropyLossClassImbalance":
+        with open(cfg.class_counts_file or "counts_tv") as f:
+            counts = [int(line) for line in f if line.strip()]
+        return functools.partial(fn, class_counts=counts)
+    return fn
 
 
 def _model_apply_kwargs(cfg: TrainConfig, device: torch.device,
@@ -70,14 +83,14 @@ def _model_apply_kwargs(cfg: TrainConfig, device: torch.device,
     rule, with "tpu" read as "cuda"; the flags keep the names the shared
     config gives them). `kernel_train_mode` overrides the training rule:
     "on" forces the train kernels (their plain versions on CPU tensors),
-    "off" the plain scan."""
+    "off" the plain scan. Models without recurrences swallow these. Then
+    DBoF's flag block and the head's size, as in the JAX package."""
     is_cuda = torch.device(device).type == "cuda"
     bf16 = cfg.compute_dtype == "bfloat16"
     kw: Dict[str, Any] = {
         "classifier": cfg.video_level_classifier_model,
         "compute_dtype": torch.bfloat16 if bf16 else torch.float32,
-        # MoeModel is the only head ported so far
-        "num_mixtures": cfg.moe_num_mixtures,
+        "is_training": not inference,
     }
     if inference:
         kw["use_kernel"] = (cfg.use_pallas_inference and bf16 and is_cuda
@@ -89,6 +102,16 @@ def _model_apply_kwargs(cfg: TrainConfig, device: torch.device,
     else:
         raise ValueError(f"kernel_train_mode must be 'on', 'off' or None, "
                          f"got {kernel_train_mode!r}")
+    if cfg.model == "DbofModel":
+        # DBoF's flag block (frame_level_models.py:119-124)
+        kw.update(iterations=cfg.iterations,
+                  sample_random=cfg.sample_random_frames,
+                  pooling_method=cfg.dbof_pooling_method,
+                  add_batch_norm=cfg.dbof_add_batch_norm)
+    if cfg.video_level_classifier_model == "MoeModel":
+        kw["num_mixtures"] = cfg.moe_num_mixtures
+    else:
+        kw["num_hidden_units"] = cfg.num_hidden_units
     return kw
 
 
@@ -116,19 +139,26 @@ def _check_model(cfg: TrainConfig, model) -> None:
 
 
 def forward_teacher(cfg: TrainConfig, model, model_input: torch.Tensor,
-                    num_frames: torch.Tensor, inference: bool = False,
+                    num_frames: torch.Tensor, labels=None,
+                    inference: bool = False, dropout_keep_prob=1.0,
+                    rng: Optional[prng.Key] = None,
                     kernel_train_mode: Optional[str] = None):
-    """The teacher tower: all frames, `cfg.num_inputs_to_lstm` chunks."""
+    """The teacher tower: all frames, `cfg.num_inputs_to_lstm` chunks.
+    `labels` feed a head's own loss, `rng` its dropout (and DBoF's frame
+    sampling)."""
     _check_model(cfg, model)
     return model(
         model_input, num_frames, num_chunks=cfg.num_inputs_to_lstm,
+        labels=labels, dropout_keep_prob=dropout_keep_prob, rng=rng,
         **_model_apply_kwargs(cfg, model_input.device, inference,
                               kernel_train_mode),
     )
 
 
 def forward_student(cfg: TrainConfig, model, model_input_student: torch.Tensor,
-                    num_frames_stud: torch.Tensor, inference: bool = False,
+                    num_frames_stud: torch.Tensor, labels=None,
+                    inference: bool = False, dropout_keep_prob=1.0,
+                    rng: Optional[prng.Key] = None,
                     kernel_train_mode: Optional[str] = None,
                     kernel_override: Optional[bool] = None):
     """`create_model_inference`: the same architecture on the subsampled
@@ -136,22 +166,94 @@ def forward_student(cfg: TrainConfig, model, model_input_student: torch.Tensor,
     _check_model(cfg, model)
     return model(
         model_input_student, num_frames_stud, num_chunks=cfg.num_inputs_L1,
+        labels=labels, dropout_keep_prob=dropout_keep_prob, rng=rng,
         **_model_apply_kwargs(cfg, model_input_student.device, inference,
                               kernel_train_mode, kernel_override),
     )
+
+
+# the models whose forward takes [B, T, D] frames (models/frame_level.py)
+FRAME_LEVEL_MODELS = frozenset({
+    "HierarchicalLstmModel", "FrameLevelLogisticModel", "DbofModel",
+    "NetVLADModel", "NeXtVLADModel",
+})
+
+
+def forward_video_level(cfg: TrainConfig, model, model_input: torch.Tensor,
+                        labels=None, inference: bool = False,
+                        dropout_keep_prob=1.0, rng: Optional[prng.Key] = None):
+    """The `--frame_features=False` forward: the flag-selected video-level
+    model applied straight to the [B, D] aggregated features
+    (train_finetune.py:514-518, readers.py:53-112)."""
+    if cfg.model in FRAME_LEVEL_MODELS:
+        raise ValueError(
+            f"--frame_features=False feeds [batch, {model_input.shape[-1]}] "
+            f"aggregated features, but --model={cfg.model} is a frame-level "
+            "model; pick a video-level head (LogisticModel, MoeModel, ...) "
+            "or use frame-feature shards")
+    _check_model(cfg, model)
+    kw: Dict[str, Any] = {
+        "compute_dtype": (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                          else torch.float32),
+        "is_training": not inference,
+    }
+    if "MoeModel" in (cfg.video_level_classifier_model, cfg.model):
+        kw["num_mixtures"] = cfg.moe_num_mixtures
+    else:
+        kw["num_hidden_units"] = cfg.num_hidden_units
+    return model(model_input, labels=labels,
+                 dropout_keep_prob=dropout_keep_prob, rng=rng, **kw)
+
+
+def preprocess_aggregated(features: torch.Tensor) -> torch.Tensor:
+    """[B, D] float32 aggregated features -> the l2-normalized model
+    input: the reference normalizes along the last axis whatever the
+    reader (train_finetune.py:242-244); the features are already float
+    averages, so nothing is dequantized."""
+    return l2_normalize(features.to(torch.float32), dim=1)
+
+
+def model_label_loss(out, labels, label_loss_fn: Callable) -> torch.Tensor:
+    """A model-supplied loss if the model gives one (a matrix-valued one,
+    LinearRegressionWeightedMeanEnsembleDifferenceLoss's, trains on its
+    sum, as slim's train op reduces it), else the flag loss."""
+    loss = out.get("loss")
+    if loss is None:
+        return label_loss_fn(out["predictions"], labels)
+    return torch.sum(loss) if loss.dim() > 0 else loss
+
+
+def _merge_updated_stats(model, updated: Optional[Tensors]) -> None:
+    """Write the statistics the forward computed (DBoF's batch-norm moving
+    averages, "updated_stats") over their parameters, after the optimizer
+    update: slim's UPDATE_OPS around the train op (train.py:312-318). The
+    statistics got a zero gradient, so the update left them alone."""
+    if not updated:
+        return
+    with torch.no_grad():
+        for name, value in updated.items():
+            model.get_parameter(name).copy_(value)
 
 
 def _distill_losses(cfg: TrainConfig, out_t, out_s, labels,
                     label_loss_fn: Callable) -> Dict[str, torch.Tensor]:
     """The eight scalars of the reference's train graph
     (train.py:294-406)."""
-    teacher_label_loss = label_loss_fn(out_t["predictions"], labels)
+    teacher_label_loss = model_label_loss(out_t, labels, label_loss_fn)
     teacher_reg = out_t["regularization_loss"]
     teacher_final = cfg.regularization_penalty * teacher_reg + teacher_label_loss
+    if "state" not in out_t or "state" not in out_s:
+        # the reference's train.py unpacks `state, result =
+        # model.create_model(...)` (train.py:281-288), which only
+        # HierarchicalLstmModel provides
+        raise ValueError(
+            f"model '{cfg.model}' does not return a distillation 'state'; "
+            "teacher-student training requires HierarchicalLstmModel. "
+            "Train single-tower models with cli.finetune --start_new_model.")
     l_rep = losses_lib.representation_loss(out_t["state"], out_s["state"])
     l_pred = losses_lib.prediction_kl_loss(out_t["predictions"],
                                            out_s["predictions"])
-    student_label_loss = label_loss_fn(out_s["predictions"], labels)
+    student_label_loss = model_label_loss(out_s, labels, label_loss_fn)
     student_reg = out_s["regularization_loss"]
     rep_weight = 2.0 if cfg.faithful_quirks else 1.0
     student_total = (rep_weight * l_rep + l_pred + student_label_loss
@@ -168,15 +270,47 @@ def _distill_losses(cfg: TrainConfig, out_t, out_s, labels,
     }
 
 
-def _grads(loss: torch.Tensor, *modules) -> Tuple[Tensors, ...]:
-    """d loss / d parameters of each module, as dicts by name."""
+def param_grads(loss: torch.Tensor, *modules) -> Tuple[Tensors, ...]:
+    """d loss / d parameters of each module, as dicts by name; zeros for
+    a parameter the loss does not reach (batch-norm moving statistics in
+    training), as `jax.grad` gives."""
     params = [params_of(m) for m in modules]
-    flat = torch.autograd.grad(loss, [p for ps in params for p in ps.values()])
+    flat_params = [p for ps in params for p in ps.values()]
+    flat = torch.autograd.grad(loss, flat_params, allow_unused=True)
+    flat = [torch.zeros_like(p) if g is None else g
+            for p, g in zip(flat_params, flat)]
     out, i = [], 0
     for ps in params:
         out.append(dict(zip(ps, flat[i:i + len(ps)])))
         i += len(ps)
     return tuple(out)
+
+
+def step_rng(cfg: TrainConfig, global_step: int) -> prng.Key:
+    """The key of a train step's dropout and frame sampling:
+    ``fold_in(PRNGKey(seed), global_step)``, as the JAX steps derive it."""
+    return prng.fold_in(prng.prng_key(cfg.seed), global_step)
+
+
+def _distill(cfg: TrainConfig, state: DistillState, features_u8, labels,
+             num_frames, kernel_train_mode: Optional[str] = None):
+    label_loss_fn = resolve_label_loss(cfg)
+    model_input = preprocess_batch(cfg, features_u8, num_frames)
+    model_input_s = uniform_subsample(model_input, cfg.every_n)
+    nf_student = student_num_frames(num_frames, cfg.every_n, cfg.max_num_frames)
+    rng_t, rng_s = prng.split(step_rng(cfg, state.global_step))
+    out_t = forward_teacher(cfg, state.teacher, model_input, num_frames, labels,
+                            dropout_keep_prob=state.dropout_keep_prob, rng=rng_t,
+                            kernel_train_mode=kernel_train_mode)
+    out_s = forward_student(cfg, state.student, model_input_s, nf_student, labels,
+                            dropout_keep_prob=state.dropout_keep_prob, rng=rng_s,
+                            kernel_train_mode=kernel_train_mode)
+    ls = _distill_losses(cfg, out_t, out_s, labels, label_loss_fn)
+    g_t, g_s = param_grads(ls["teacher_final_loss"] + ls["total_student_loss"],
+                           state.teacher, state.student)
+    ls = {name: value.detach() for name, value in ls.items()}
+    return (ls, out_t["predictions"].detach(), g_t, g_s,
+            (out_t.get("updated_stats"), out_s.get("updated_stats")))
 
 
 def distill_loss_and_grads(cfg: TrainConfig, state: DistillState,
@@ -185,22 +319,13 @@ def distill_loss_and_grads(cfg: TrainConfig, state: DistillState,
                            kernel_train_mode: Optional[str] = None):
     """Both towers forward and ONE backward of ``teacher_final +
     total_student`` (the teacher gets no gradient from the student terms:
-    L_REP and L_PRED detach it). Returns (the eight loss scalars,
-    detached; the teacher's predictions, detached; the teacher's and the
-    student's gradients, dicts by parameter name)."""
-    label_loss_fn = resolve_label_loss(cfg)
-    model_input = preprocess_batch(cfg, features_u8, num_frames)
-    model_input_s = uniform_subsample(model_input, cfg.every_n)
-    nf_student = student_num_frames(num_frames, cfg.every_n, cfg.max_num_frames)
-    out_t = forward_teacher(cfg, state.teacher, model_input, num_frames,
-                            kernel_train_mode=kernel_train_mode)
-    out_s = forward_student(cfg, state.student, model_input_s, nf_student,
-                            kernel_train_mode=kernel_train_mode)
-    ls = _distill_losses(cfg, out_t, out_s, labels, label_loss_fn)
-    g_t, g_s = _grads(ls["teacher_final_loss"] + ls["total_student_loss"],
-                      state.teacher, state.student)
-    ls = {name: value.detach() for name, value in ls.items()}
-    return ls, out_t["predictions"].detach(), g_t, g_s
+    L_REP and L_PRED detach it), with the dropout keys of
+    `state.global_step` (`step_rng`, split into teacher and student).
+    Returns (the eight loss scalars, detached; the teacher's predictions,
+    detached; the teacher's and the student's gradients, dicts by
+    parameter name)."""
+    return _distill(cfg, state, features_u8, labels, num_frames,
+                    kernel_train_mode)[:4]
 
 
 def _schedule(cfg: TrainConfig):
@@ -221,14 +346,16 @@ def build_distill_train_step(cfg: TrainConfig, optimizer: Optimizer,
     reference's per-step log covers the teacher only)."""
     schedule = _schedule(cfg)
     step_increment = 2 if cfg.faithful_quirks else 1
-    resolve_label_loss(cfg)  # an unported loss fails here, not mid-run
+    resolve_label_loss(cfg)  # a missing counts file fails here, not mid-run
 
     def step(state: DistillState, features_u8, labels, num_frames):
-        ls, preds_t, g_t, g_s = distill_loss_and_grads(
+        ls, preds_t, g_t, g_s, (upd_t, upd_s) = _distill(
             cfg, state, features_u8, labels, num_frames, kernel_train_mode)
         lr = schedule(state.global_step)
         optimizer.update(g_t, state.opt_teacher, params_of(state.teacher), lr)
         optimizer.update(g_s, state.opt_student, params_of(state.student), lr)
+        _merge_updated_stats(state.teacher, upd_t)
+        _merge_updated_stats(state.student, upd_s)
         state.global_step += step_increment
         topk_val, topk_idx, perr = topk_and_perr_on_device(preds_t, labels,
                                                            top_k)
@@ -251,33 +378,43 @@ def build_finetune_step(cfg: TrainConfig, optimizer: Optimizer,
                         kernel_train_mode: Optional[str] = None):
     """Student-only training: CE + reg (train_finetune.py:263-331).
     Returns step(state, features_u8, labels, num_frames) -> (state,
-    metrics); the global step advances by 1.
+    metrics); the global step advances by 1. The dropout key (and DBoF's
+    sampling key) is `step_rng` of the global step.
 
     `host_subsampled`: the frames were strided to every_n on the host;
     `num_frames` stays the ORIGINAL count. The uint8 frames are
     subsampled before preprocessing, so only the kept ones are
-    dequantized and normalized."""
-    if aggregated:
-        raise NotImplementedError(
-            "the aggregated --frame_features=False branch is not ported yet "
-            "(ROADMAP Queue 1, the model zoo and losses)")
+    dequantized and normalized.
+
+    `aggregated`: the `--frame_features=False` branch: [B, D] float32
+    features of pre-aggregated Examples into a video-level model
+    (`forward_video_level`); `num_frames` is the reader's all-ones
+    placeholder and is ignored."""
     schedule = _schedule(cfg)
     label_loss_fn = resolve_label_loss(cfg)
 
     def step(state: StudentState, features_u8, labels, num_frames):
-        nf_student = student_num_frames(num_frames, cfg.every_n,
-                                        cfg.max_num_frames)
-        sub = (features_u8 if host_subsampled
-               else uniform_subsample(features_u8, cfg.every_n))
-        model_input_s = preprocess_batch(cfg, sub, nf_student)
-        out_s = forward_student(cfg, state.student, model_input_s, nf_student,
-                                kernel_train_mode=kernel_train_mode)
-        label_loss = label_loss_fn(out_s["predictions"], labels)
+        rng = step_rng(cfg, state.global_step)
+        if aggregated:
+            out_s = forward_video_level(
+                cfg, state.student, preprocess_aggregated(features_u8), labels,
+                dropout_keep_prob=state.dropout_keep_prob, rng=rng)
+        else:
+            nf_student = student_num_frames(num_frames, cfg.every_n,
+                                            cfg.max_num_frames)
+            sub = (features_u8 if host_subsampled
+                   else uniform_subsample(features_u8, cfg.every_n))
+            model_input_s = preprocess_batch(cfg, sub, nf_student)
+            out_s = forward_student(cfg, state.student, model_input_s, nf_student,
+                                    labels, dropout_keep_prob=state.dropout_keep_prob,
+                                    rng=rng, kernel_train_mode=kernel_train_mode)
+        label_loss = model_label_loss(out_s, labels, label_loss_fn)
         reg = out_s["regularization_loss"]
-        (g_s,) = _grads(cfg.regularization_penalty * reg + label_loss,
-                        state.student)
+        (g_s,) = param_grads(cfg.regularization_penalty * reg + label_loss,
+                             state.student)
         lr = schedule(state.global_step)
         optimizer.update(g_s, state.opt_student, params_of(state.student), lr)
+        _merge_updated_stats(state.student, out_s.get("updated_stats"))
         state.global_step += 1
         preds = out_s["predictions"].detach()
         topk_val, topk_idx, perr = topk_and_perr_on_device(preds, labels, top_k)
@@ -330,16 +467,16 @@ def _pack_host_outputs(topk_val, topk_idx, per_example_loss, perr,
     return torch.cat(parts, dim=1)
 
 
-def _check_eval_model(cfg: TrainConfig) -> None:
-    """Stands where the JAX eval steps call `_faithful_eval_rngs`, which
-    draws eval-time frame-sampling rngs for `DbofModel` under faithful
-    mode and none for the other models. DbofModel is not ported (ROADMAP
-    Queue 1, the model zoo and losses), so it raises here instead of evaluating without
-    them."""
-    if cfg.model == "DbofModel":
-        raise NotImplementedError(
-            "DbofModel and its eval-time frame sampling are not ported yet "
-            "(ROADMAP Queue 1, the model zoo and losses)")
+def _faithful_eval_rngs(cfg: TrainConfig, num_frames: torch.Tensor):
+    """Eval-time frame-sampling keys (teacher, student) for DBoF under
+    faithful mode, else (None, None). The reference samples frames at
+    random at eval too (model_utils.py:39-58); the keys fold the batch's
+    `sum(num_frames)` into `PRNGKey(seed)`, so every batch draws anew.
+    The sum stays on the device: the keys are device tensors."""
+    if not (cfg.faithful_quirks and cfg.model == "DbofModel"):
+        return None, None
+    return tuple(prng.split(prng.fold_in(prng.prng_key(cfg.seed),
+                                         torch.sum(num_frames))))
 
 
 def _eval_outputs(predictions: torch.Tensor, labels: torch.Tensor,
@@ -370,7 +507,6 @@ def build_validate_step(cfg: TrainConfig, top_k: int = 20):
     step(teacher, student, features_u8, labels, num_frames) -> the eight
     loss scalars and the student's `_eval_outputs`."""
     label_loss_fn = resolve_label_loss(cfg)
-    _check_eval_model(cfg)
 
     @torch.no_grad()
     def step(teacher, student, features_u8, labels, num_frames):
@@ -378,10 +514,11 @@ def build_validate_step(cfg: TrainConfig, top_k: int = 20):
         model_input_s = uniform_subsample(model_input, cfg.every_n)
         nf_student = student_num_frames(num_frames, cfg.every_n,
                                         cfg.max_num_frames)
-        out_t = forward_teacher(cfg, teacher, model_input, num_frames,
-                                inference=True)
+        rng_t, rng_s = _faithful_eval_rngs(cfg, num_frames)
+        out_t = forward_teacher(cfg, teacher, model_input, num_frames, labels,
+                                inference=True, rng=rng_t)
         out_s = forward_student(cfg, student, model_input_s, nf_student,
-                                inference=True)
+                                labels, inference=True, rng=rng_s)
         ls = _distill_losses(cfg, out_t, out_s, labels, label_loss_fn)
         return {**ls, **_eval_outputs(out_s["predictions"], labels, top_k)}
 
@@ -397,23 +534,27 @@ def build_eval_step(cfg: TrainConfig, top_k: int = 20,
 
     `host_subsampled`: the frames were strided to every_n on the host;
     `num_frames` stays the ORIGINAL count. `kernel_override` replaces the
-    rule that picks the forward-only kernel."""
-    if aggregated:
-        raise NotImplementedError(
-            "the aggregated --frame_features=False branch is not ported yet "
-            "(ROADMAP Queue 1, the model zoo and losses)")
-    _check_eval_model(cfg)
+    rule that picks the forward-only kernel. `aggregated`: [B, D] float32
+    pre-aggregated features into the video-level model
+    (eval_finetune.py:298-302)."""
 
     @torch.no_grad()
     def step(student, features_u8, labels, num_frames):
+        if aggregated:
+            out_s = forward_video_level(cfg, student,
+                                        preprocess_aggregated(features_u8),
+                                        labels, inference=True)
+            return _eval_outputs(out_s["predictions"], labels, top_k)
         # subsample uint8 first: only the kept frames are preprocessed
         nf_student = student_num_frames(num_frames, cfg.every_n,
                                         cfg.max_num_frames)
         sub = (features_u8 if host_subsampled
                else uniform_subsample(features_u8, cfg.every_n))
         model_input_s = preprocess_batch(cfg, sub, nf_student)
-        out_s = forward_student(cfg, student, model_input_s, nf_student,
-                                inference=True, kernel_override=kernel_override)
+        _, rng_s = _faithful_eval_rngs(cfg, num_frames)
+        out_s = forward_student(cfg, student, model_input_s, nf_student, labels,
+                                inference=True, rng=rng_s,
+                                kernel_override=kernel_override)
         return _eval_outputs(out_s["predictions"], labels, top_k)
 
     return step

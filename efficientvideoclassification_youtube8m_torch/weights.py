@@ -5,6 +5,10 @@ The port's modules keep the JAX layouts (LSTM ``kernel [D+H, 4H]``,
 ``bias [4H]``; MoE ``gates.w [D, m+1, V]``, ...) and name their
 parameters after the pytree paths, so the bridge is a name map with no
 transposes: ``params["rnn_l1"][0]["kernel"]`` is ``rnn_l1.0.kernel``.
+Every tree of the zoo maps so, bare leaves (NetVLAD's ``centers``, the
+0-d ``alpha_logit``) and DBoF's batch-norm ``moving_mean`` /
+``moving_var`` (parameters of the port's modules, as they are leaves of
+the JAX tree) included.
 A tree is a nested dict/list of numpy arrays, as
 ``jax.tree.map(np.asarray, params)`` gives it.
 """

@@ -14,6 +14,7 @@ import torch
 
 from efficientvideoclassification_youtube8m_tpu.cli import convert as jax_convert
 from efficientvideoclassification_youtube8m_tpu.cli import eval as jax_eval
+from efficientvideoclassification_youtube8m_tpu.cli import finetune as jax_finetune
 from efficientvideoclassification_youtube8m_tpu.cli import flags as jax_flags
 from efficientvideoclassification_youtube8m_tpu.cli import train as jax_train
 from efficientvideoclassification_youtube8m_tpu.data import (
@@ -26,7 +27,9 @@ from efficientvideoclassification_youtube8m_tpu.parallel import distributed as j
 from efficientvideoclassification_youtube8m_tpu.train import (
     init_distill_state as jax_init_distill_state,
     make_optimizer as jax_make_optimizer,
+    restore_checkpoint as jax_restore_checkpoint,
     save_checkpoint as jax_save_checkpoint,
+    student_state_from_distill as jax_student_state_from_distill,
 )
 from efficientvideoclassification_youtube8m_torch.cli import convert, finetune, train, validate
 from efficientvideoclassification_youtube8m_torch.cli import eval as eval_cli
@@ -34,9 +37,19 @@ from efficientvideoclassification_youtube8m_torch.cli import flags
 from efficientvideoclassification_youtube8m_torch.metrics import eval_util
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
 from efficientvideoclassification_youtube8m_torch.serving import Predictor
+from efficientvideoclassification_youtube8m_torch.data import TFRecordReader, iter_fields
 from efficientvideoclassification_youtube8m_torch.train import msgpack_io
-from efficientvideoclassification_youtube8m_torch.train.checkpoint import latest_checkpoint
-from efficientvideoclassification_youtube8m_torch.train.state import init_model
+from efficientvideoclassification_youtube8m_torch.train.checkpoint import (
+    latest_checkpoint,
+    restore_checkpoint,
+)
+from efficientvideoclassification_youtube8m_torch.train.optimizer import make_optimizer
+from efficientvideoclassification_youtube8m_torch.train.state import (
+    StudentState,
+    init_model,
+    params_of,
+    state_tree,
+)
 
 torch.set_num_threads(1)
 
@@ -267,7 +280,6 @@ def test_06_predictor_from_checkpoint(dirs):
 
 
 PARALLEL = "ROADMAP Queue 1, parallel and orbax"
-ZOO = "ROADMAP Queue 1, the model zoo and losses"
 HOST_PATHS = "ROADMAP Queue 1, the host paths of the binaries"
 
 
@@ -275,12 +287,8 @@ HOST_PATHS = "ROADMAP Queue 1, the host paths of the binaries"
     (train, ["--use_shardmap_train", "true"], PARALLEL),
     (train, ["--model_parallelism", "2"], PARALLEL),
     (train, ["--checkpoint_format", "orbax"], PARALLEL),
-    (train, ["--model", "DbofModel"], ZOO),
-    (finetune, ["--frame_features", "false"], ZOO),
-    (eval_cli, ["--frame_features", "false"], ZOO),
     (eval_cli, ["--steps_per_dispatch", "3"], HOST_PATHS),
     (validate, ["--steps_per_dispatch", "3"], HOST_PATHS),
-    (validate, ["--video_level_classifier_model", "LogisticModel"], ZOO),
 ])
 def test_07_unported_options_raise(dirs, binary, extra, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -291,13 +299,49 @@ def test_07_unported_options_raise(dirs, binary, extra, match):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("inference_ensemble", ZOO), ("train_ensemble", ZOO),
     ("export_tf", "ROADMAP Queue 1, checkpoint interop")])
 def test_07b_unported_binaries_raise(name, match):
     binary = importlib.import_module(
         f"efficientvideoclassification_youtube8m_torch.cli.{name}")
     with pytest.raises(NotImplementedError, match=f"cli.{name} .*{match}"):
         binary.main(["--train_dir", "unused"])
+
+
+@pytest.mark.parametrize("binary,extra,error,match", [
+    (train, ["--model", "DbofModel", "--dbof_cluster_size", "8",
+             "--dbof_hidden_size", "4"], ValueError, "distillation 'state'"),
+    (train, ["--frame_features", "false"], ValueError, "requires frame-level features"),
+    (validate, ["--frame_features", "false"], ValueError, "requires frame-level features"),
+    (eval_cli, ["--frame_features", "false", "--quantize", "int8"], ValueError,
+     "frame-level student path"),
+    (eval_cli, ["--model", "DbofModel", "--quantize", "int8"], ValueError, "flagship"),
+])
+def test_07c_zoo_options_fail_as_in_jax(dirs, tmp_path, binary, extra, error, match):
+    """The zoo's flags run in the port; what the JAX binaries refuse, the
+    port refuses with the same message (DBoF has no distillation state;
+    distillation and validation need frame features; int8 is the
+    flagship's frame path)."""
+    with pytest.raises(error, match=match):
+        binary.main(TINY_FLAGS + ["--train_dir", str(tmp_path / "zoo") + "/",
+                                  "--train_data_pattern", dirs["train_pattern"],
+                                  "--eval_data_pattern", dirs["eval_pattern"],
+                                  "--start_new_model", "true",
+                                  "--run_once", "true"] + extra)
+
+
+def test_07d_validate_with_another_head(dirs, tmp_path):
+    """The flagship with a non-MoE head through train and validate."""
+    head = ["--video_level_classifier_model", "SingleHiddenLayerModelDropout",
+            "--num_hidden_units", "6", "--dropout", "0.5", "--num_epochs", "1"]
+    train_dir = str(tmp_path / "head") + "/"
+    state = train.main(TINY_FLAGS + head + ["--train_dir", train_dir, "--start_new_model",
+                                            "true", "--train_data_pattern",
+                                            dirs["train_pattern"]])
+    assert state.global_step == 2 * 3 and state.dropout_keep_prob == 0.5
+    epoch = validate.main(TINY_FLAGS + head + ["--train_dir", train_dir, "--run_once",
+                                               "true", "--eval_data_pattern",
+                                               dirs["eval_pattern"]])
+    assert epoch["epoch_id"] == 6 and np.isfinite(epoch["avg_loss"])
 
 
 def test_08_flags_devices_and_clusters(dirs, tmp_path, monkeypatch):
@@ -442,3 +486,81 @@ def test_11_cross_package_eval(dirs, cross):
             assert abs(got[key] - want[key]) <= EVAL_ATOL, (finetune_dir, key)
         np.testing.assert_allclose(got["aps"], want["aps"], atol=EVAL_ATOL)
         assert abs(got["avg_loss"] - want["avg_loss"]) <= LOSS_ATOL
+
+
+def _scalars(logdir, tag):
+    """{step: value} of the scalar summary `tag` in logdir's events files."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(logdir, "events.out.tfevents.*"))):
+        for record in TFRecordReader(path):
+            fields = {f: v for f, _, v in iter_fields(record)}
+            for _, _, sv in iter_fields(bytes(fields.get(5, b""))):
+                value = {f: v for f, _, v in iter_fields(bytes(sv))}
+                if bytes(value.get(1, b"")).decode() == tag:
+                    out[fields.get(2, 0)] = float(np.frombuffer(bytes(value[2]), "<f4")[0])
+    return out
+
+
+# DBoF through both packages' cli.finetune --start_new_model from one seed:
+# the inits agree to 3 ulp (normal draws), the frame samples and dropout
+# keys bit for bit, so the losses of each step agree in f32 (4.1e-7
+# relative measured) and the batch-norm moving statistics, which the
+# forward computes, to 1e-6 (1.6e-7 measured; the trained weights differ
+# by up to 1.3e-4, TF-Adam's sign of a near-zero gradient element).
+DBOF_LOSS_RTOL, DBOF_STATS_ATOL = 1e-5, 1e-6
+
+
+def test_12_dbof_finetune_across_packages(dirs, tmp_path):
+    """Three steps of DBoF (batch norm on) in each package's cli.finetune;
+    each package's student checkpoint restores into the other's template,
+    moving statistics included."""
+    argv = TINY_FLAGS + SAME_BATCHES + [
+        "--model", "DbofModel", "--dbof_cluster_size", "16", "--dbof_hidden_size", "8",
+        "--iterations", "5", "--seed", "2", "--start_new_model", "true",
+        "--num_epochs", "1", "--save_summaries_secs", "0",
+        "--train_data_pattern", dirs["train_pattern"]]
+    train_dirs = {}
+    for pkg, binary in (("jax", jax_finetune), ("port", finetune)):
+        train_dirs[pkg] = str(tmp_path / pkg) + "/"
+        binary.main(argv + ["--train_dir", train_dirs[pkg]])
+    losses = {pkg: _scalars(d, "student_label_loss") for pkg, d in train_dirs.items()}
+    assert sorted(losses["port"]) == sorted(losses["jax"]) == [1, 2]
+    for step, want in losses["jax"].items():
+        np.testing.assert_allclose(losses["port"][step], want, rtol=DBOF_LOSS_RTOL)
+    ckpts = {pkg: latest_checkpoint(d) for pkg, d in train_dirs.items()}
+    assert all(c.endswith("model.ckpt-3.msgpack") for c in ckpts.values())
+    leaves = {pkg: _leaves(c) for pkg, c in ckpts.items()}
+    for name in ("input_bn/moving_mean", "cluster_bn/moving_var", "hidden1_bn/moving_mean"):
+        key = f"params_student/{name}"
+        assert np.any(leaves["port"][key] != (1.0 if "var" in name else 0.0)), key
+        np.testing.assert_allclose(leaves["port"][key], leaves["jax"][key],
+                                   atol=DBOF_STATS_ATOL, err_msg=key)
+
+    # the JAX checkpoint into the port's template, the port's into the JAX one's
+    cfg = flags.config_from_args(flags.base_parser("").parse_args(argv))
+    opt = make_optimizer(cfg.optimizer)
+    student = init_model(cfg)
+    template = StudentState(student=student, opt_student=opt.init(params_of(student)),
+                            global_step=0, dropout_keep_prob=1.0)
+    restored = _flat(state_tree(restore_checkpoint(ckpts["jax"], template)))
+    for key, want in leaves["jax"].items():
+        np.testing.assert_array_equal(np.asarray(restored[key], want.dtype), want,
+                                      err_msg=key)
+    jopt = jax_make_optimizer(cfg.optimizer)
+    jtemplate = jax_student_state_from_distill(jax_init_distill_state(cfg, jopt), jopt)
+    jrestored = jax_restore_checkpoint(ckpts["port"], jtemplate)
+    for key, want in leaves["port"].items():
+        node = jrestored
+        for part in key.split("/"):
+            node = getattr(node, part) if not isinstance(node, dict) else node[part]
+        np.testing.assert_array_equal(np.asarray(node), want, err_msg=key)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: np.asarray(tree.detach().numpy() if isinstance(tree, torch.Tensor)
+                                    else tree)}

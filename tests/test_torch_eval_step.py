@@ -177,10 +177,20 @@ def test_eval_step_guards():
     with pytest.raises(ValueError, match="flagship"):
         tstep.build_quantized_eval_step(
             TINY.replace(video_level_classifier_model="LogisticModel"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the model zoo and losses"):
-        tstep.build_eval_step(TINY, aggregated=True)
-    dbof = TINY.replace(model="DbofModel")
-    with pytest.raises(NotImplementedError, match="DbofModel"):
-        tstep.build_eval_step(dbof)
-    with pytest.raises(NotImplementedError, match="DbofModel"):
-        tstep.build_validate_step(dbof)
+    # the aggregated branch takes video-level models only, as in JAX
+    feats = torch.zeros(2, TINY.total_feature_size)
+    labels = torch.zeros(2, TINY.num_classes, dtype=torch.bool)
+    with pytest.raises(ValueError, match="frame-level model"):
+        tstep.build_eval_step(TINY, aggregated=True)(None, feats, labels,
+                                                     torch.ones(2, dtype=torch.int32))
+    # DBoF evaluates (its eval keys are tests/test_torch_zoo.py's); the
+    # validate step needs a distillation state, which DBoF has not
+    dbof = TINY.replace(model="DbofModel", dbof_cluster_size=8, dbof_hidden_size=4,
+                        iterations=3)
+    student = init_model(dbof)
+    batch = (torch.zeros(2, TINY.max_num_frames, TINY.total_feature_size,
+                         dtype=torch.uint8), labels, torch.tensor([5, 9], dtype=torch.int32))
+    out = tstep.build_eval_step(dbof)(student, *batch)
+    assert out["predictions"].shape == (2, TINY.num_classes)
+    with pytest.raises(ValueError, match="does not return a distillation 'state'"):
+        tstep.build_validate_step(dbof)(init_model(dbof), student, *batch)

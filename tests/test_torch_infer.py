@@ -247,8 +247,11 @@ def test_infer_options(dirs, tmp_path):
     out = str(tmp_path / "x.csv")
     with pytest.raises(NotImplementedError, match="host paths of the binaries"):
         _run(infer, dirs, out, "--steps_per_dispatch", "3")
-    with pytest.raises(NotImplementedError, match="the model zoo and losses"):
+    # the aggregated branch takes video-level models (tests/test_torch_aggregated.py)
+    with pytest.raises(ValueError, match="frame-level model"):
         _run(infer, dirs, out, "--frame_features", "false")
+    with pytest.raises(ValueError, match="frame-level student path"):
+        _run(infer, dirs, out, "--frame_features", "false", "--quantize", "int8")
     with pytest.raises(IOError, match="unable to find a checkpoint"):
         infer.main(TINY_FLAGS + ["--train_dir", str(tmp_path / "none"),
                                  "--input_data_pattern", dirs["pattern"],

@@ -314,15 +314,37 @@ def test_finetune_step_matches_jax(host_subsampled):
 
 
 def test_finetune_aggregated_branch_raises():
+    """The aggregated branch is ported (tests/test_torch_aggregated.py); it
+    raises, as the JAX step does, for a frame-level --model."""
     opt = make_optimizer(TINY.optimizer)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the model zoo and losses"):
-        tstep.build_finetune_step(TINY, opt, aggregated=True)
+    step = tstep.build_finetune_step(TINY, opt, aggregated=True)
+    state = student_state_from_distill(init_distill_state(TINY, opt), opt)
+    with pytest.raises(ValueError, match="frame-level model"):
+        step(state, torch.zeros(2, TINY.total_feature_size),
+             torch.zeros(2, TINY.num_classes, dtype=torch.bool),
+             torch.ones(2, dtype=torch.int32))
 
 
-def test_unported_label_loss_fails_at_build():
+def test_unported_label_loss_fails_at_build(tmp_path):
+    """Every label loss builds; a file-backed one fails at build, not
+    mid-run, when its counts file is missing, and reads it once."""
     opt = make_optimizer(TINY.optimizer)
-    with pytest.raises(NotImplementedError):
-        tstep.build_distill_train_step(TINY.replace(label_loss="HingeLoss"), opt)
+    tstep.build_distill_train_step(TINY.replace(label_loss="HingeLoss"), opt)
+    imbalance = TINY.replace(label_loss="CrossEntropyLossClassImbalance",
+                             class_counts_file=str(tmp_path / "counts_tv"))
+    with pytest.raises(FileNotFoundError):
+        tstep.build_distill_train_step(imbalance, opt)
+    (tmp_path / "counts_tv").write_text("\n".join(str(10 * (i + 1)) for i in
+                                                   range(TINY.num_classes)) + "\n")
+    fn = tstep.resolve_label_loss(imbalance)
+    want = jstep.resolve_label_loss(imbalance)
+    p = np.random.default_rng(0).uniform(0.1, 0.9, (4, TINY.num_classes)).astype(np.float32)
+    labels = np.random.default_rng(1).random((4, TINY.num_classes)) < 0.2
+    np.testing.assert_allclose(fn(torch.from_numpy(p), torch.from_numpy(labels)).item(),
+                               float(want(jnp.asarray(p), jnp.asarray(labels))), rtol=1e-6)
+    pwe = tstep.resolve_label_loss(TINY.replace(label_loss="PWELoss"))
+    with pytest.raises(ValueError, match="128"):
+        pwe(torch.from_numpy(p), torch.from_numpy(labels))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -108,9 +108,32 @@ kernel's device time alone, the replay of a CUDA graph of one call
      cli.eval and cli.infer --frame_features=False for three video-level
      models, then cli.train_ensemble and cli.inference_ensemble over
      their CSVs, the ensemble's rows on the card against the same head
-     run on the CPU. Phase 9's directory lives until the end. Last, no
-     module of jax, flax, msgpack or the JAX package is loaded and
-     nothing was written into the JAX package's directory.
+     run on the CPU. Phase 9's directory lives until the end;
+ 13. checkpoint interop at the flagship's width: (a) cli.train 2 steps
+     from the JAX package's seed-0 init on 9b's shards, cli.export_tf of
+     both towers (TF-V2 bundles), then Predictor.from_checkpoint over the
+     bundles' directories (bf16 and int8, teacher and student; a teacher
+     of the student-only bundle refused), cli.validate and cli.eval over
+     them, each against the msgpack checkpoint of the same step bit for
+     bit with its kernel launches; the bundle imported into a card state
+     and exported again, byte for byte the first export; export and
+     import GiB/s; (b) the student's finetune state at
+     --moe_num_mixtures 13 (6.35 GiB with its Adam slots, three leaves
+     over flax's 2**30-byte limit) saved in flax's chunked form and
+     restored into another card state bit for bit, with GiB/s;
+ 14. data-parallel runs: (a) cli.train 4 steps in one process and in an
+     NCCL group of one rank joined from MASTER_ADDR/RANK/WORLD_SIZE,
+     parameters and Adam slots compared to the last bit, the step rates
+     in turns and the all-reduce of one step under the profiler; (b) two
+     gloo ranks sharing the card (subprocesses of this script,
+     `--dp-worker`) at lstm_cells 256, batch 64: one distill step and one
+     synced-BN DBoF finetune step against one process on the whole batch
+     (phase 6's bars on the gradients of an SGD step), and eval rows
+     gathered over the ranks against one process's rows; (c) the Chrome
+     trace phase 6 wrote through utils/profiling.trace names
+     lstm_step_kernel and lstm_bwd_step_kernel. Last, no module of jax,
+     flax, msgpack or the JAX package is loaded and nothing was written
+     into the JAX package's directory.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is {"kernels": [...]}; the last is {"ok": true, "device": {...}}. With no
@@ -121,18 +144,22 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import datetime
 import glob
 import hashlib
 import io
 import json
 import logging
 import math
+import mmap
 import os
 import re
 import shutil
+import socket
 import struct
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -142,6 +169,7 @@ from efficientvideoclassification_youtube8m_torch import data as port_data
 from efficientvideoclassification_youtube8m_torch import ensemble
 from efficientvideoclassification_youtube8m_torch.cli import convert as convert_cli
 from efficientvideoclassification_youtube8m_torch.cli import eval as eval_cli
+from efficientvideoclassification_youtube8m_torch.cli import export_tf as export_tf_cli
 from efficientvideoclassification_youtube8m_torch.cli import finetune as finetune_cli
 from efficientvideoclassification_youtube8m_torch.cli import flags
 from efficientvideoclassification_youtube8m_torch.cli import hash_check as hash_check_cli
@@ -157,7 +185,7 @@ from efficientvideoclassification_youtube8m_torch.cli import max_ensemble as max
 from efficientvideoclassification_youtube8m_torch.cli import train as train_cli
 from efficientvideoclassification_youtube8m_torch.cli import train_ensemble as train_ensemble_cli
 from efficientvideoclassification_youtube8m_torch.cli import validate as validate_cli
-from efficientvideoclassification_youtube8m_torch.data import native
+from efficientvideoclassification_youtube8m_torch.data import native, tf_checkpoint
 from efficientvideoclassification_youtube8m_torch.metrics.eval_util import (
     train_step_metrics,
 )
@@ -167,12 +195,20 @@ from efficientvideoclassification_youtube8m_torch.ops import prng, quantize
 from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_scan
 from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_scan_int8
 from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_train
+from efficientvideoclassification_youtube8m_torch.models import frame_level
+from efficientvideoclassification_youtube8m_torch.parallel import distributed
+from efficientvideoclassification_youtube8m_torch.parallel.mesh import BUCKET_BYTES, create_mesh
+from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
+    DISTILL_SCALARS,
+    build_sharded_distill_step,
+    build_sharded_finetune_step,
+)
 from efficientvideoclassification_youtube8m_torch.serving import (
     Predictor,
     TrainConfig,
     init_model,
 )
-from efficientvideoclassification_youtube8m_torch.train import checkpoint, msgpack_io
+from efficientvideoclassification_youtube8m_torch.train import checkpoint, msgpack_io, tf_export
 from efficientvideoclassification_youtube8m_torch.train.optimizer import (
     make_optimizer,
 )
@@ -183,6 +219,7 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
     student_state_from_distill,
 )
 from efficientvideoclassification_youtube8m_torch.scripts import acceptance_run
+from efficientvideoclassification_youtube8m_torch.utils import profiling
 from efficientvideoclassification_youtube8m_torch.train.step import (
     build_distill_train_step,
     build_eval_step,
@@ -192,6 +229,8 @@ from efficientvideoclassification_youtube8m_torch.train.step import (
 )
 
 CSRC = "efficientvideoclassification_youtube8m_torch/ops/csrc/"
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_trace")
 PALLAS = "efficientvideoclassification_youtube8m_tpu/ops/pallas/lstm_scan.py:"
 LIBRARIES = ("lstm_chunk_scan", "lstm_train", "lstm_chunk_scan_int8")
 
@@ -652,19 +691,20 @@ STEP_KINDS = (
 )
 
 
-def profile_distill_step(step, state, batch, smi) -> None:
-    """One distill step under torch.profiler: wall time, device time and
-    busy share, device time by kind (STEP_KINDS) and the largest kernels.
-    The step advances `state` like any other."""
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_distill_step(step, state, batch, smi, logdir: str) -> str:
+    """One distill step under torch.profiler, through the port's
+    `utils/profiling.trace`: wall time, device time and busy share, device
+    time by kind (STEP_KINDS) and the largest kernels. The step advances
+    `state` like any other. Returns the Chrome trace written into
+    `logdir` (phase 14c reads it)."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(logdir, device="cuda") as trace:
         t0 = time.perf_counter()
         step(state, *batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {evt.key: evt.self_device_time_total / 1e3 for evt in prof.key_averages()
+    kernels = {evt.key: evt.self_device_time_total / 1e3
+               for evt in trace.profile.key_averages()
                if evt.device_type == torch.autograd.DeviceType.CUDA
                and evt.self_device_time_total > 0}
     kinds = dict.fromkeys([kind for kind, _ in STEP_KINDS] + ["other elementwise"], 0.0)
@@ -679,6 +719,7 @@ def profile_distill_step(step, state, batch, smi) -> None:
         + f" ({smi})")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[6]   {ms:8.3f} ms  {name[:110]}")
+    return trace.path
 
 
 def distill_kernel_vs_plain(cfg, state, batch, tag: str):
@@ -759,7 +800,7 @@ def phase_distill(smi):
     if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in host.values()):
         raise AssertionError(f"teacher metrics out of [0, 1]: {host}")
     rate = B / float(np.median(seconds[1:]))
-    profile_distill_step(step, state, batch, smi)
+    trace_path = profile_distill_step(step, state, batch, smi, TRACE_DIR)
 
     plain_step = build_distill_train_step(cfg, opt, kernel_train_mode="off")
     before = train_counts()
@@ -783,7 +824,7 @@ def phase_distill(smi):
         f"bwd {delta[1]}, student_label_loss {ce:.6g}, global_step {sstate.global_step}")
     if delta != [per_tower, per_tower] or not math.isfinite(ce) or sstate.global_step != 1:
         raise AssertionError("the finetune step did not run through the train kernels")
-    return launches, rate
+    return launches, rate, trace_path
 
 
 def int8_layer_case(T, B, H, D, gen):
@@ -2092,6 +2133,523 @@ def phase_zoo(root: str, smi: str) -> dict:
     return {"frames": frames, "aggregated": aggregated, **heads}
 
 
+# -------------------------------- phase 13: checkpoint interop on the card
+
+INTEROP_SERVE = 300  # videos a Predictor serves in 13a: two chunks of 256
+
+
+def bundle_bytes(prefix: str) -> int:
+    return sum(os.path.getsize(prefix + s) for s in (".index", ".data-00000-of-00001"))
+
+
+def same_bundle(a: str, b: str) -> bool:
+    return all(open(a + s, "rb").read() == open(b + s, "rb").read()
+               for s in (".index", ".data-00000-of-00001"))
+
+
+def same_epoch(a: dict, b: dict) -> bool:
+    """Every value of two epoch-metric dicts equal (the per-class APs of
+    classes without positives are NaN in both)."""
+    return sorted(a) == sorted(b) and all(
+        np.array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                       equal_nan=np.asarray(a[k]).dtype.kind == "f") for k in a)
+
+
+def phase_interop(root: str, smi: str) -> dict:
+    """13a: the flagship's TF-V2 interop. cli.train 2 steps from the JAX
+    package's seed-0 init; cli.export_tf of both towers; Predictor
+    (bf16, int8; teacher, student), cli.validate and cli.eval over the
+    bundles' directories against the msgpack checkpoint of the same step,
+    bit for bit; import, re-export and byte-compare; export and import
+    GiB/s."""
+    data_dir = os.path.join(root, "scale")
+    cfg = TrainConfig()
+    B, levels = cfg.batch_size, 2 * cfg.lstm_layers
+    steps = SCALE_TRAIN // B
+    train_dir = os.path.join(root, "interop_train") + "/"
+    state, _, _ = run_binary("13a cli.train from the seed-0 init", train_cli.main, [
+        "--train_dir", train_dir, "--num_epochs", "1", "--start_new_model", "true",
+        "--train_data_pattern", os.path.join(data_dir, "train*.tfrecord")],
+        {"lstm_train_fwd": 2 * levels * steps, "lstm_train_bwd": 2 * levels * steps},
+        phase="13")
+    step = state.global_step
+    if step != 2 * steps:
+        raise AssertionError(f"13a cli.train ended at step {step}")
+    del state
+    msgpack_path = checkpoint.latest_checkpoint(train_dir)
+    bundles = {}
+    for tower in ("distill", "student"):
+        out_dir = os.path.join(root, f"interop_{tower}")
+        bundles[tower], seconds, _ = run_binary(
+            f"13a cli.export_tf --tower {tower}", export_tf_cli.main, [
+                "--train_dir", train_dir, "--tower", tower,
+                "--output_prefix", os.path.join(out_dir, "model.ckpt")], {}, phase="13")
+        if bundles[tower] != os.path.join(out_dir, f"model.ckpt-{step}"):
+            raise AssertionError(f"13a export named {bundles[tower]}")
+        reader = tf_checkpoint.TFCheckpointReader(bundles[tower])
+        log(f"[13] 13a {tower} bundle {os.path.basename(bundles[tower])}: "
+            f"{len(reader.variable_names())} tensors, {bundle_bytes(bundles[tower])} B, "
+            f"cli.export_tf {seconds:.3f} s in all")
+
+    serve_cfg = TrainConfig(compute_dtype="bfloat16")
+    (feats, nf), = requests((INTEROP_SERVE,), serve_cfg, seed=13)
+    chunks = math.ceil(INTEROP_SERVE / SERVE_BATCH)
+    counters = {"none": lstm_scan.lstm_chunk_scan, "int8": lstm_scan_int8.lstm_chunk_scan_int8}
+    launches = {}
+    for tower, quant in (("student", "none"), ("teacher", "none"), ("student", "int8"),
+                         ("teacher", "int8")):
+        probs = {}
+        for where, directory in (("bundle", os.path.dirname(bundles["distill"])),
+                                 ("msgpack", train_dir),
+                                 ("student bundle", os.path.dirname(bundles["student"]))):
+            if where == "student bundle" and tower == "teacher":
+                try:
+                    Predictor.from_checkpoint(directory, serve_cfg, tower="teacher",
+                                              device="cuda")
+                except ValueError as e:
+                    log(f"[13] 13a the teacher of the student-only bundle: ValueError ({e})")
+                    continue
+                raise AssertionError("13a a student-only bundle served a teacher")
+            predictor = Predictor.from_checkpoint(directory, serve_cfg, tower=tower,
+                                                  serve_batch=SERVE_BATCH, device="cuda",
+                                                  quantize=quant)
+            counters[quant].launches = 0
+            probs[where] = predictor.predict(feats, nf)
+            torch.cuda.synchronize()
+            launches[f"{tower} {quant}"] = counters[quant].launches
+            if counters[quant].launches != levels * chunks:
+                raise AssertionError(f"13a {tower} {quant} from the {where}: "
+                                     f"{counters[quant].launches} launches")
+            del predictor
+        check_predictions(probs["bundle"], INTEROP_SERVE, serve_cfg.num_classes,
+                          f"13a {tower} {quant}")
+        same = {w: bool(np.array_equal(p, probs["msgpack"])) for w, p in probs.items()}
+        log(f"[13] 13a Predictor {tower} {'bf16' if quant == 'none' else quant} over "
+            f"{INTEROP_SERVE} videos: {levels * chunks} kernel launches each; predictions "
+            "bit-equal to the msgpack checkpoint's: " + ", ".join(
+                f"{w} {s}" for w, s in same.items()))
+        if not all(same.values()):
+            raise AssertionError(f"13a {tower} {quant}: bundle predictions differ")
+
+    eval_batches = math.ceil(SCALE_EVAL / B)
+    pattern = os.path.join(data_dir, "validate*.tfrecord")
+    epochs = {}
+    for name, main_fn, directory, expected in (
+            ("validate over the bundle", validate_cli.main, os.path.dirname(bundles["distill"]),
+             2 * levels * eval_batches),
+            ("validate over the msgpack", validate_cli.main, train_dir, 2 * levels * eval_batches),
+            ("eval over the student bundle", eval_cli.main,
+             os.path.dirname(bundles["student"]), levels * eval_batches),
+            ("eval over the msgpack", eval_cli.main, train_dir, levels * eval_batches)):
+        # one batch order in every run: the epoch sums are compared bit for bit
+        epochs[name], _, _ = run_binary(f"13a cli.{name}", main_fn, [
+            "--train_dir", directory, "--run_once", "true", "--eval_data_pattern", pattern,
+            "--deterministic_input", "true"], {"lstm_chunk_scan": expected}, phase="13")
+    for kind in ("validate", "eval"):
+        a = epochs[f"{kind} over the {'bundle' if kind == 'validate' else 'student bundle'}"]
+        b = epochs[f"{kind} over the msgpack"]
+        log(f"[13] 13a cli.{kind} epoch metrics, bundle / msgpack: " + "; ".join(
+            f"{k} {a[k]:.6g} / {b[k]:.6g}" for k in EPOCH_KEYS + ("avg_loss",))
+            + f"; every value bit-equal: {same_epoch(a, b)}")
+        if not same_epoch(a, b) or a["epoch_id"] != step:
+            raise AssertionError(f"13a cli.{kind}: the bundle's epoch metrics differ")
+
+    opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
+    state = init_distill_state(cfg, opt, prng.prng_key(1), device="cuda")
+    checkpoint.restore_checkpoint(msgpack_path, state)
+    torch.cuda.synchronize()
+    again = os.path.join(root, "interop_again", f"model.ckpt-{step}")
+    t0 = time.perf_counter()
+    tf_export.export_tf_checkpoint(again, state)
+    export_s = time.perf_counter() - t0
+    size = bundle_bytes(again)
+    del state
+    template = init_distill_state(cfg, opt, prng.prng_key(2), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.restore_checkpoint(bundles["distill"], template)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    roundtrip = os.path.join(root, "interop_roundtrip", f"model.ckpt-{step}")
+    tf_export.export_tf_checkpoint(roundtrip, template)
+    same = same_bundle(roundtrip, bundles["distill"]) and same_bundle(again, bundles["distill"])
+    log(f"[13] 13a distill bundle {size} B ({size / 2**30:.3f} GiB): export of a card state "
+        f"{export_s:.3f} s ({size / export_s / 2**30:.2f} GiB/s), import into a card state "
+        f"{import_s:.3f} s ({size / import_s / 2**30:.2f} GiB/s); import then re-export "
+        f"byte-equal to cli.export_tf's bundle: {same} ({smi})")
+    if not same:
+        raise AssertionError("13a the re-exported bundle differs from the export")
+    del template
+    for d in ("interop_again", "interop_roundtrip", "interop_distill", "interop_student"):
+        shutil.rmtree(os.path.join(root, d))
+    shutil.rmtree(train_dir)
+    return {"export_gib_s": size / export_s / 2**30, "import_gib_s": size / import_s / 2**30,
+            "bundle_bytes": size, "launches": launches}
+
+
+def phase_chunked(root: str, smi: str) -> dict:
+    """13b: the student's finetune state at --moe_num_mixtures 13, whose
+    MoE gate weights and their Adam moments are over flax's 2**30-byte
+    chunk limit: saved in flax's chunked form and restored into another
+    card state, bit for bit."""
+    cfg = TrainConfig(moe_num_mixtures=13)
+    opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
+
+    def student_state(seed):
+        student = init_model(cfg, prng.prng_key(seed), device="cuda")
+        return StudentState(student=student, opt_student=opt.init(params_of(student)),
+                            global_step=0, dropout_keep_prob=cfg.dropout)
+
+    state = student_state(2)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for key in ("mu", "nu"):
+        for t in state.opt_student[key].values():
+            t.normal_(generator=gen)
+    state.opt_student["count"], state.global_step = 3, 7
+    leaves = list(params_of(state.student).values()) + [
+        t for key in ("mu", "nu") for t in state.opt_student[key].values()]
+    reckoned = sum(t.numel() * 4 for t in leaves)
+    over = sum(t.numel() * 4 > msgpack_io.MAX_CHUNK_SIZE for t in leaves)
+    directory = os.path.join(root, "chunked")
+    os.makedirs(directory)
+    free = shutil.disk_usage(directory).free
+    log(f"[13] 13b student finetune state at --moe_num_mixtures 13: {len(leaves)} "
+        f"float32 leaves, {reckoned} B ({reckoned / 2**30:.3f} GiB) reckoned, {over} over "
+        f"the {msgpack_io.MAX_CHUNK_SIZE}-byte chunk limit; {free / 2**30:.1f} GiB free")
+    if free < 1.5 * reckoned:
+        raise AssertionError(f"13b needs {1.5 * reckoned / 2**30:.1f} GiB free on disk")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = checkpoint.save_checkpoint(directory, state, state.global_step)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+        marks, at = 0, mm.find(msgpack_io.CHUNKED.encode())
+        while at >= 0:
+            marks += 1
+            at = mm.find(msgpack_io.CHUNKED.encode(), at + 1)
+    if marks != over or over == 0:
+        raise AssertionError(f"13b {marks} chunked leaves in the file, {over} expected")
+    template = student_state(5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.restore_checkpoint(path, template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    want = state_tree_tensors(state)
+    got = state_tree_tensors(template)
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    if bad or template.global_step != 7 or template.opt_student["count"] != 3:
+        raise AssertionError(f"13b restored leaves differ: {bad[:5]}")
+    log(f"[13] 13b {os.path.basename(path)}: {size} B ({size / 2**30:.3f} GiB), {marks} "
+        f"leaves chunked as flax chunks them; save {save_s:.3f} s "
+        f"({size / save_s / 2**30:.2f} GiB/s), restore into a card state {restore_s:.3f} s "
+        f"({size / restore_s / 2**30:.2f} GiB/s); all {len(want)} tensors bit-equal ({smi})")
+    os.remove(path)
+    return {"bytes": size, "save_gib_s": size / save_s / 2**30,
+            "restore_gib_s": size / restore_s / 2**30}
+
+
+def state_tree_tensors(state) -> dict:
+    """The state's parameters and optimizer slots by path."""
+    out = {f"student.{n}": t for n, t in state.student.state_dict().items()}
+    for key in ("mu", "nu"):
+        out.update({f"{key}.{n}": t for n, t in state.opt_student[key].items()})
+    return out
+
+
+# ------------------------------- phase 14: data-parallel and the trace
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def step_rates(steps, state, batch, per_step, turns: int = 3):
+    """Each (name, step) of `steps` timed in turns, `turns` times, each
+    step making `per_step` launches of each train kernel; videos/s by the
+    median of the turns after the first. Returns (rates, state)."""
+    seconds = {name: [] for name, _ in steps}
+    for _ in range(turns):
+        for name, fn in steps:
+            before = train_counts()
+            state, _, sec = timed_step(fn, state, batch)
+            seconds[name].append(sec)
+            launches = [a - b for a, b in zip(train_counts(), before)]
+            if launches != [per_step, per_step]:
+                raise AssertionError(f"the {name} step made {launches} train launches")
+    return {k: batch[0].shape[0] / float(np.median(v[1:])) for k, v in seconds.items()}, state
+
+
+def phase_world_one(root: str, smi: str) -> dict:
+    """14a: cli.train at flagship width for 4 steps in a group of one
+    rank on NCCL, initialized from the environment, against the same run
+    in one process; then the data-parallel step's all-reduce under the
+    profiler and its rate against the single-process step's."""
+    data_dir = os.path.join(root, "scale")
+    cfg = TrainConfig(compute_dtype="bfloat16")  # cli.train's default
+    levels = 2 * cfg.lstm_layers
+    steps = 2 * SCALE_TRAIN // cfg.batch_size
+    opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
+    batch = distill_batch(cfg, cfg.batch_size, seed=6)
+    plain_step = build_distill_train_step(cfg, opt)
+    fresh = init_distill_state(cfg, opt, prng.prng_key(0), device="cuda")
+    t_cpu = time.process_time()
+    t_wall = time.perf_counter()
+    before, fresh = step_rates([("plain", plain_step)], fresh, batch, 2 * levels)
+    log(f"[14] 14a a fresh state's step before the runs: {before['plain']:.1f} videos/s "
+        f"(process CPU over wall {(time.process_time() - t_cpu) / (time.perf_counter() - t_wall):.2f}, "
+        f"{threading.active_count()} threads, "
+        f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB reserved)")
+    del fresh
+    argv = ["--num_epochs", "2", "--start_new_model", "true", "--deterministic_input", "true",
+            "--train_data_pattern", os.path.join(data_dir, "train*.tfrecord")]
+    expected = {"lstm_train_fwd": 2 * levels * steps, "lstm_train_bwd": 2 * levels * steps}
+    single, single_s, _ = run_binary("14a cli.train, one process", train_cli.main, argv + [
+        "--train_dir", os.path.join(root, "world1_single")], expected, phase="14")
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()), "RANK": "0",
+           "WORLD_SIZE": "1"}
+    os.environ.update(env)
+    try:
+        grouped, grouped_s, counts = run_binary(
+            "14a cli.train, an NCCL group of one rank", train_cli.main, argv + [
+                "--train_dir", os.path.join(root, "world1_group")], expected, phase="14")
+        backend = torch.distributed.get_backend()
+        if backend != "nccl" or torch.distributed.get_world_size() != 1:
+            raise AssertionError(f"14a the group is {backend} of "
+                                 f"{torch.distributed.get_world_size()}")
+        diffs = {}
+        for tower in ("teacher", "student"):
+            want = getattr(single, tower).state_dict()
+            for name, t in getattr(grouped, tower).state_dict().items():
+                diffs[f"{tower}.{name}"] = (t.float() - want[name].float()).abs().max().item()
+            for key in ("mu", "nu"):
+                want = getattr(single, f"opt_{tower}")[key]
+                for name, t in getattr(grouped, f"opt_{tower}")[key].items():
+                    diffs[f"opt_{tower}.{key}.{name}"] = (t - want[name]).abs().max().item()
+        worst = max(diffs.items(), key=lambda kv: kv[1])
+        log(f"[14] 14a {steps} steps, global step {grouped.global_step} / "
+            f"{single.global_step}: the group of one against one process, "
+            f"{len(diffs)} tensors, largest |diff| {worst[1]:.3g} ({worst[0]}); "
+            f"cli.train {grouped_s:.3f} s against {single_s:.3f} s")
+        if worst[1] != 0.0 or grouped.global_step != single.global_step:
+            raise AssertionError(f"14a the group of one differs from one process: {worst}")
+        del single
+        dp_step = build_sharded_distill_step(cfg, opt, create_mesh(device="cuda"))
+        t_cpu = time.process_time()
+        t_wall = time.perf_counter()
+        rate, grouped = step_rates([("group", dp_step), ("plain", plain_step)], grouped,
+                                   batch, 2 * levels)
+        log(f"[14] 14a steps in turns on cli.train's state, median of turns 2-3: group of "
+            f"one {rate['group']:.1f} videos/s, one process {rate['plain']:.1f} videos/s "
+            f"({rate['group'] / rate['plain']:.3f}); process CPU over wall "
+            f"{(time.process_time() - t_cpu) / (time.perf_counter() - t_wall):.2f}, "
+            f"{threading.active_count()} threads, "
+            f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB reserved ({smi})")
+        with profiling.trace(os.path.join(root, "world1_trace"), device="cuda") as t:
+            grouped, _ = dp_step(grouped, *batch)
+        events = [e for e in t.profile.key_averages()
+                  if "nccl" in e.key.lower() or "allreduce" in e.key.lower()]
+        device_ms = sum(e.self_device_time_total for e in events
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        calls = [e for e in events if e.key == "nccl:all_reduce"]
+        host_ms = sum(e.cpu_time_total for e in calls) / 1e3
+        ncalls = sum(e.count for e in calls)
+        log(f"[14] 14a one data-parallel step under the profiler: {ncalls} NCCL all-reduce "
+            f"calls (gradient buckets of {BUCKET_BYTES // 2**20} MiB, the loss scalars): "
+            f"device time {device_ms:.3f} ms, host time {host_ms:.3f} ms a step; events "
+            + ", ".join(sorted({e.key[:40] for e in events})) + f" ({smi})")
+        if ncalls < 2:
+            raise AssertionError(f"14a the profile shows {ncalls} all-reduce calls")
+    finally:
+        distributed.shutdown()
+        for key in env:
+            os.environ.pop(key, None)
+    for d in ("world1_single", "world1_group", "world1_trace"):
+        shutil.rmtree(os.path.join(root, d), ignore_errors=True)
+    return {"allreduce_ms": device_ms, "allreduce_host_ms": host_ms, "rate": rate,
+            "launches": counts}
+
+
+# 14b: two ranks on one card over gloo (NCCL refuses two ranks on one
+# device) at a reduced width; the bars are phase 6's (gradients, recovered
+# from one SGD step as (before - after) / lr, within TOL_GRAD_REL of their
+# max; losses TOL_LOSS_REL + TOL_LOSS_ABS).
+DP_CFG = dict(lstm_cells=256, batch_size=64, compute_dtype="bfloat16",
+              optimizer="GradientDescentOptimizer")
+DP_DBOF = dict(DP_CFG, model="DbofModel", sync_batch_norm=True)
+DP_SEEDS = {"distill": 31, "dbof": 32, "eval": 33}
+
+
+def even_sampler(x, nf, k, rng):
+    return frame_level.sample_even_frames(x, nf, k)
+
+
+def dp_cases(mesh, rows, cases=("distill", "dbof", "eval")) -> dict:
+    """The 14b cases on `mesh` (`rows` picks this rank's slice of a global
+    batch): a distill step and a synced-BN DBoF finetune step by SGD
+    (their recovered gradients, moving statistics and losses), and the
+    eval rows of a bf16 student (gathered over the mesh's ranks)."""
+    out = {}
+    for case in [c for c in cases if c != "eval"]:
+        cfg = TrainConfig(**(DP_CFG if case == "distill" else DP_DBOF))
+        opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
+        state = init_distill_state(cfg, opt, prng.prng_key(0), device="cuda")
+        if case == "dbof":
+            state = student_state_from_distill(state, opt)
+        towers = ("teacher", "student") if case == "distill" else ("student",)
+        before = {f"{t}.{n}": p.detach().clone() for t in towers
+                  for n, p in params_of(getattr(state, t)).items()}
+        batch = rows(distill_batch(cfg, cfg.batch_size, seed=DP_SEEDS[case]))
+        build = build_sharded_distill_step if case == "distill" else build_sharded_finetune_step
+        state, metrics = build(cfg, opt, mesh)(state, *batch)
+        after = {f"{t}.{n}": p.detach() for t in towers
+                 for n, p in params_of(getattr(state, t)).items()}
+        for name, p in before.items():
+            if "moving_" in name:  # written by their average, not by SGD
+                out[f"{case}/stat/{name}"] = after[name].float().cpu().numpy()
+            else:
+                out[f"{case}/grad/{name}"] = (
+                    (p - after[name]) / cfg.base_learning_rate).float().cpu().numpy()
+        out.update({f"{case}/loss/{k}": np.float64(v.item()) for k, v in metrics.items()
+                    if k in DISTILL_SCALARS})
+        del state
+    if "eval" in cases:
+        cfg = TrainConfig(**DP_CFG)
+        student = init_model(cfg, prng.prng_key(4), device="cuda")
+        feats, labels, nf = rows(distill_batch(cfg, cfg.batch_size, seed=DP_SEEDS["eval"]))
+        out_eval = build_eval_step(cfg)(student, feats, labels, nf)
+        gathered = distributed.gather_step_outputs(out_eval, labels.cpu().numpy(), 0)
+        out.update({f"eval/{k}": v for k, v in gathered.items()})
+    return out
+
+
+def dp_worker(rank: int, port: int, out_dir: str) -> None:
+    """One rank of 14b (`python3 chip_smoke.py --dp-worker RANK PORT DIR`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"localhost:{port}", 2, rank, device=torch.device("cuda", 0),
+                           backend="gloo", timeout=datetime.timedelta(seconds=300))
+    frame_level.sample_random_frames = even_sampler
+    probe = torch.full((4,), float(rank + 1), device="cuda")
+    torch.distributed.all_reduce(probe)
+    if probe.tolist() != [3.0] * 4:
+        raise AssertionError(f"gloo all_reduce of a CUDA tensor gave {probe.tolist()}")
+    mesh = create_mesh(device="cuda")
+
+    def rows(batch):
+        n = batch[0].shape[0] // 2
+        return tuple(t[rank * n:(rank + 1) * n] for t in batch)
+
+    out = dp_cases(mesh, rows)
+    out.update({f"launches/{k}": np.int64(fn.launches) for k, fn in COUNTERS.items()})
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    distributed.shutdown()
+    print(f"DP_WORKER_OK {rank} backend gloo, CUDA tensors all-reduced", flush=True)
+
+
+def phase_two_ranks(root: str, smi: str) -> dict:
+    """14b: two gloo ranks sharing the card against one process."""
+    out_dir = os.path.join(root, "two_ranks")
+    os.makedirs(out_dir)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(rank), str(port),
+         out_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in (0, 1)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=600)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.wait()
+            raise AssertionError("14b a rank timed out")
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"DP_WORKER_OK {rank}" not in text:
+            raise AssertionError(f"14b rank {rank} failed:\n{text[-4000:]}")
+    wall = time.perf_counter() - t0
+    ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in (0, 1)]
+    if sorted(ranks[0]) != sorted(ranks[1]) or not all(
+            np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0]):
+        raise AssertionError("14b the two ranks hold different results")
+    got = ranks[0]
+    # a distill step: 2 towers x 2 levels x 2 layers of each train kernel;
+    # the DBoF step none; the eval step 2 levels x 2 layers of the scan
+    want_launches = {"lstm_train_fwd": 8, "lstm_train_bwd": 8, "lstm_chunk_scan": 4,
+                     "lstm_chunk_scan_int8": 0}
+    launches = {k: int(got.pop(f"launches/{k}")) for k in COUNTERS}
+    ranks[1] = {k: v for k, v in ranks[1].items() if not k.startswith("launches/")}
+    if launches != want_launches:
+        raise AssertionError(f"14b a rank's kernel launches {launches}, not {want_launches}")
+    original = frame_level.sample_random_frames
+    frame_level.sample_random_frames = even_sampler
+    try:
+        whole = dp_cases(create_mesh(device="cuda"), lambda batch: batch)
+        halves = [dp_cases(create_mesh(device="cuda"),
+                           lambda batch, r=r: tuple(t[r * 32:(r + 1) * 32] for t in batch),
+                           cases=("eval",))
+                  for r in (0, 1)]
+    finally:
+        frame_level.sample_random_frames = original
+    report = {}
+    for case in ("distill", "dbof"):
+        grads = {k: v for k, v in whole.items() if k.startswith(f"{case}/grad/")}
+        # a gradient that cancels analytically (an offset whose shift the
+        # next batch norm removes) is rounding noise in both runs: each
+        # tensor is held against its own max or 1e-3 of the step's largest
+        # gradient, whichever is larger
+        floor = 1e-3 * max(float(np.abs(v).max()) for v in grads.values())
+        errs = {k: float(np.abs(got[k] - v).max()) / max(float(np.abs(v).max()), floor)
+                for k, v in grads.items()}
+        floored = [k.split("/")[-1] for k, v in grads.items()
+                   if float(np.abs(v).max()) < floor]
+        stats = [float(np.abs(got[k] - whole[k]).max()) for k in whole
+                 if k.startswith(f"{case}/stat/")]
+        losses = {k: (got[k], whole[k]) for k in whole if k.startswith(f"{case}/loss/")}
+        bad = [k for k, (a, b) in losses.items()
+               if abs(a - b) > TOL_LOSS_REL * abs(b) + TOL_LOSS_ABS]
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        report[case] = worst[1]
+        log(f"[14] 14b {case}: two gloo ranks on one card (32 videos each) against one "
+            f"process on the 64: losses " + "; ".join(
+                f"{k.split('/')[-1]} {a:.6g} / {b:.6g}" for k, (a, b) in losses.items())
+            + f"; gradients over {len(errs)} tensors, worst {worst[0]} {worst[1]:.3g} of "
+            f"its max (under the floor of {floor:.3g}: {floored or 'none'})"
+            + (f"; moving statistics max|diff| {max(stats):.3g}" if stats else "")
+            + f" (bars: losses {TOL_LOSS_REL} + {TOL_LOSS_ABS}, gradients {TOL_GRAD_REL})")
+        if bad or worst[1] > TOL_GRAD_REL or (stats and max(stats) > 1e-3):
+            raise AssertionError(f"14b {case}: the two ranks miss the bars ({bad}, {worst})")
+    for key in [k for k in got if k.startswith("eval/")]:
+        want = np.concatenate([h[key] for h in halves])
+        if not np.array_equal(got[key], want):
+            raise AssertionError(f"14b gathered {key} differs from the single-process rows")
+    spread = float(np.abs(got["eval/topk_val"] - whole["eval/topk_val"]).max())
+    log(f"[14] 14b eval: {got['eval/topk_val'].shape[0]} gathered rows bit-equal to one "
+        f"process's rows of the same two halves; top-k values against the whole batch in one "
+        f"call max|diff| {spread:.3g} (the kernels' row tiles differ); both ranks' outputs "
+        f"identical; {wall:.1f} s for the two ranks ({smi})")
+    shutil.rmtree(out_dir)
+    return report
+
+
+def phase_trace(trace_path: str) -> None:
+    """14c: the Chrome trace phase 6 wrote through utils/profiling.trace
+    names the train kernels."""
+    with open(trace_path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    found = {k: any(k in n for n in names) for k in ("lstm_step_kernel",
+                                                     "lstm_bwd_step_kernel")}
+    log(f"[14] 14c {os.path.basename(trace_path)} ({os.path.getsize(trace_path)} B, "
+        f"{len(names)} event names): " + ", ".join(f"{k} {v}" for k, v in found.items()))
+    if not all(found.values()):
+        raise AssertionError(f"14c the trace lacks {found}")
+    shutil.rmtree(os.path.dirname(trace_path))
+
+
 def jax_package_files():
     """The files under the JAX package's directory (beside this script),
     or None where there is none."""
@@ -2112,7 +2670,7 @@ def main() -> None:
     worst, times = phase_kernel()
     launches = phase_serving(smi)
     train_worst, train_times = phase_train_kernels()
-    train_launches, step_rate = phase_distill(smi)
+    train_launches, step_rate, trace_path = phase_distill(smi)
     int8_worst, int8_times = phase_int8_kernel()
     int8_launches = phase_int8_serving(smi)
     phase_routing()
@@ -2124,16 +2682,26 @@ def main() -> None:
         library = phase_library(smi)["student_L1"]
         phase_gate(smi)
         zoo = phase_zoo(root, smi)
+        t0 = time.perf_counter()
+        interop = phase_interop(root, smi)
+        chunked = phase_chunked(root, smi)
+        log(f"[13] phase 13 wall {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        world_one = phase_world_one(root, smi)
+        two_ranks = phase_two_ranks(root, smi)
+        phase_trace(trace_path)
+        log(f"[14] phase 14 wall {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(TRACE_DIR, ignore_errors=True)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "msgpack", "efficientvideoclassification_youtube8m_tpu"))
     if loaded:
         raise AssertionError(f"the port imported {loaded}")
     if jax_package_files() != jax_files:
         raise AssertionError("the run wrote into the JAX package's directory")
-    log("[12] no module of jax, flax, msgpack or the JAX package loaded; nothing "
-        "written into the JAX package's directory")
+    log("[14] no module of jax, flax, msgpack or the JAX package loaded; nothing "
+        "written into the JAX package's directory (phases 1-14)")
     # The line's times are at student_L1 (T=6, B=1280, H=1024), the
     # student's first layer at batch 256. "ms" and "plain_ms" are eager
     # calls, "graph_ms" the kernel's graph replay. library_ms is cuDNN's
@@ -2164,7 +2732,19 @@ def main() -> None:
             "bound_by": b["bound_by"], "library_ms": lib_ms, "port_layer_ms": layer_ms})
         if name.startswith("lstm_train"):
             # the launches of phase 12b's cli.train (SingleHiddenLayerModelDropout)
+            # and of phase 14a's cli.train in an NCCL group of one rank
             kernels[-1]["zoo_train_launches"] = zoo["train_launches"]
+            kernels[-1]["world_one_train_launches"] = world_one["launches"][name]
+        else:
+            # a 300-video request to each Predictor over 13a's bundle
+            kernels[-1]["interop_predict_launches"] = interop["launches"][
+                "student none" if name == "lstm_chunk_scan" else "student int8"]
+    log(f"[13] interop: export {interop['export_gib_s']:.2f} GiB/s, import "
+        f"{interop['import_gib_s']:.2f} GiB/s of a {interop['bundle_bytes']} B bundle; "
+        f"chunked msgpack {chunked['bytes']} B, save {chunked['save_gib_s']:.2f} GiB/s, "
+        f"restore {chunked['restore_gib_s']:.2f} GiB/s; 14a all-reduce "
+        f"{world_one['allreduce_ms']:.3f} ms a step; 14b worst gradient "
+        + ", ".join(f"{k} {v:.3g}" for k, v in two_ranks.items()))
     log(f"[1] card: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2174,4 +2754,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

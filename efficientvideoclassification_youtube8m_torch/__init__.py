@@ -20,13 +20,18 @@ Layering (bottom-up), as far as the port reaches so far:
              device-side top-k and PERR
   train/     TF-semantics optimizers, the training state, and the steps:
              preprocessing, the tower forwards, distill, finetune,
-             validate, eval and int8 eval
+             validate, eval and int8 eval (data-parallel given a process
+             group); msgpack checkpoints and TF-V2 import and export
+  parallel/  torch.distributed: the process group, the data-parallel
+             steps and collectives, the stream sync and eval-row gather
   weights    numpy parameter bridge to and from the JAX pytree layout
   serving    Predictor: bf16 and int8 student/teacher serving on one
              device
   ensemble   Kaggle-CSV rows and the max ensemble
   cli/       the binaries: train, validate, convert, finetune, eval, infer,
-             inference_bias, max_ensemble, inspect_checkpoint, hash_check
+             inference_bias, max_ensemble, inspect_checkpoint, hash_check,
+             train_ensemble, inference_ensemble, export_tf
+  utils/     the config, the summaries, the profiler
   scripts/   the convergence gate (acceptance_run)
 """
 

@@ -16,22 +16,12 @@ and the tools around them:
   inference_ensemble  -> inference_ensemble.py (a learned head over K CSVs)
   inspect_checkpoint  -> inspect_checkpoint_myfile.py
   hash_check          -> hash_check_redownload.py (shard md5s)
+  export_tf           -> a checkpoint as a reference TF-V2 bundle
 
 Run as `python -m efficientvideoclassification_youtube8m_torch.cli.<name>`
 with the JAX package's flags; `--device cpu` runs on the CPU, the default
-`/gpu:0` on the first CUDA device. `export_tf` is not ported yet: its
-module raises NotImplementedError naming the ROADMAP Queue 1 item it
-waits for.
+`/gpu:0` on the first CUDA device. Under `torch.distributed` (TF_CONFIG
+or MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE in the environment) train,
+finetune, validate and eval run one process per device, data-parallel
+(parallel/).
 """
-
-
-def not_ported(name: str, what: str, item: str):
-    """The `main` of a binary that is not ported yet: it raises, naming
-    the ROADMAP Queue 1 item (by its title) that ports it."""
-
-    def main(argv=None):
-        raise NotImplementedError(
-            f"cli.{name} ({what}) is not ported to the GPU package yet "
-            f"(ROADMAP Queue 1, {item}); run the JAX package's cli.{name}")
-
-    return main

@@ -1,5 +1,7 @@
-"""Finetuned-student evaluator (port of the JAX package's cli/eval.py,
-single process on one device).
+"""Finetuned-student evaluator (port of the JAX package's cli/eval.py):
+one process per device; under a `torch.distributed` group each rank
+evaluates its slice of the shards and the rows are gathered, as
+cli.validate does.
 
 The reference's eval_finetune.py: student-only eval, epoch-level
 GAP/mAP/Hit@1/PERR, waiting for new checkpoints unless --run_once. The
@@ -47,7 +49,6 @@ logger = logging.getLogger("eval")
 
 def evaluate(args):
     """Returns the epoch metrics of the last checkpoint evaluated."""
-    distributed.initialize()
     flags_lib.check_ported(args)
     cfg = flags_lib.config_from_args(args)
     aggregated = not args.frame_features
@@ -55,6 +56,8 @@ def evaluate(args):
         raise ValueError("--quantize int8 is the frame-level student path")
     flags_lib.resolve_steps_per_dispatch(args, logger=logger)
     device = flags_lib.resolve_device(args)
+    distributed.initialize(device=device)
+    host = distributed.host_context(cfg.batch_size)
     # parameters only: the optimizer slots are neither allocated nor read
     state = StudentState(student=init_model(cfg, device=device), opt_student={},
                          global_step=0, dropout_keep_prob=cfg.dropout)
@@ -63,10 +66,12 @@ def evaluate(args):
                                             host_subsampled=True)
     else:
         # frame path: the loader strides the frames at the parser
+        # a rank's program: the ranks' rows are gathered in run_eval_epoch
         step_fn = build_eval_step(cfg, top_k=args.top_k,
                                   host_subsampled=not aggregated,
                                   aggregated=aggregated)
-    writer = summary_lib.SummaryWriter(os.path.join(cfg.train_dir, "eval"))
+    writer = summary_lib.for_master(os.path.join(cfg.train_dir, "eval"),
+                                    host.is_master)
     results = []
 
     def evaluate_checkpoint(ckpt):
@@ -80,7 +85,7 @@ def evaluate(args):
         results.append(run_eval_epoch(
             cfg, args, eval_loader(cfg, args,
                                    frame_stride=1 if aggregated else cfg.every_n,
-                                   aggregated=aggregated), device,
+                                   aggregated=aggregated, host=host), device,
             lambda f, l, n: step_fn(params, f, l, n), state.global_step, writer,
             logger))
 

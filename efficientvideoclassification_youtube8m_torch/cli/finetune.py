@@ -1,5 +1,6 @@
-"""Student-only finetuner (port of the JAX package's cli/finetune.py,
-single process on one device).
+"""Student-only finetuner (port of the JAX package's cli/finetune.py):
+one process per device, data-parallel across a `torch.distributed`
+group as cli.train is (`--sync_batch_norm` syncs DBoF's batch moments).
 
 The reference's train_finetune.py: single-tower training of the student
 (CE + reg) resuming from the converted checkpoint in --train_dir (the
@@ -23,6 +24,10 @@ from efficientvideoclassification_youtube8m_torch.cli import flags as flags_lib
 from efficientvideoclassification_youtube8m_torch.cli.loop import run_training_loop
 from efficientvideoclassification_youtube8m_torch.ops import prng
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
+from efficientvideoclassification_youtube8m_torch.parallel.mesh import create_mesh
+from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
+    build_sharded_finetune_step,
+)
 from efficientvideoclassification_youtube8m_torch.train.checkpoint import (
     AsyncCheckpointSaver,
     latest_checkpoint,
@@ -34,7 +39,6 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
     init_model,
     params_of,
 )
-from efficientvideoclassification_youtube8m_torch.train.step import build_finetune_step
 from efficientvideoclassification_youtube8m_torch.utils import summary as summary_lib
 from efficientvideoclassification_youtube8m_torch.data import (
     AggregatedDataLoader,
@@ -46,13 +50,19 @@ logger = logging.getLogger("finetune")
 
 
 def finetune(args):
-    distributed.initialize()
     flags_lib.check_ported(args)
     cfg = flags_lib.config_from_args(args)
     aggregated = not args.frame_features
     device = flags_lib.resolve_device(args)
+    distributed.initialize(device=device)
+    host = distributed.host_context(cfg.batch_size)
+    if host.multi_host:
+        logger.info("Multi-host: process %d/%d, local batch %d of global %d",
+                    host.process_index, host.process_count,
+                    host.local_batch_size, cfg.batch_size)
     optimizer = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
-    ckpt = None if args.start_new_model else latest_checkpoint(cfg.train_dir)
+    ckpt = None if args.start_new_model else distributed.broadcast_str(
+        latest_checkpoint(cfg.train_dir) if host.is_master else None)
     if args.start_new_model:
         # from scratch (train_finetune.py:377-379); opt-in only, so a
         # mistyped --train_dir cannot silently train from a random init
@@ -70,9 +80,10 @@ def finetune(args):
     logger.info("Trainable Parameters of Student:")
     logger.info("%s", flags_lib.param_names(state.student, "model_student"))
     logger.info("Device: %s", device)
-    step_fn = build_finetune_step(cfg, optimizer, top_k=args.top_k,
-                                  host_subsampled=not aggregated,
-                                  aggregated=aggregated)
+    mesh = create_mesh(model=args.model_parallelism, device=device)
+    step_fn = build_sharded_finetune_step(cfg, optimizer, mesh, top_k=args.top_k,
+                                          host_subsampled=not aggregated,
+                                          aggregated=aggregated)
     if ckpt:
         logger.info("Resuming student from %s", ckpt)
         restore_checkpoint(ckpt, state)
@@ -80,7 +91,7 @@ def finetune(args):
     loader_cls = AggregatedDataLoader if aggregated else FrameDataLoader
     loader = loader_cls(
         cfg.train_data_pattern,
-        batch_size=cfg.batch_size,
+        batch_size=host.local_batch_size,
         feature_names=cfg.feature_names_list,
         feature_sizes=cfg.feature_sizes_list,
         max_frames=cfg.max_num_frames,
@@ -90,13 +101,15 @@ def finetune(args):
         num_epochs=cfg.num_epochs,
         shuffle=True,
         seed=cfg.seed,
+        shard_index=host.process_index,
+        num_shards=host.process_count,
         drop_remainder=True,  # static shapes, no fabricated rows
         use_native=cfg.use_native_io,
         bagging=args.bagging,
         # the student reads every every_n-th frame: stride at the parser
         frame_stride=1 if aggregated else cfg.every_n,
     )
-    writer = summary_lib.SummaryWriter(cfg.train_dir)
+    writer = summary_lib.for_master(cfg.train_dir, host.is_master)
     start_time = time.time()
     logger.info("Entering training loop.")
 
@@ -123,7 +136,8 @@ def finetune(args):
         writer.scalar("model/Training_Perr", info["perr"], global_step_val)
         writer.scalar("model/Training_GAP", info["gap"], global_step_val)
         writer.scalar("global_step/Examples/Second",
-                      labels.shape[0] / seconds_per_batch, global_step_val)
+                      labels.shape[0] * host.process_count / seconds_per_batch,
+                      global_step_val)
         writer.flush()
 
     state = run_training_loop(

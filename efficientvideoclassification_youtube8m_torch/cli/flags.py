@@ -6,13 +6,14 @@ video_level_models.py:14-19), as the JAX package's parser does, so
 reference invocations port 1:1. Beside the parser: the parameter-list
 dump, `--steps_per_dispatch` resolution, the device the flags name, and
 the check that refuses what the port does not cover yet (orbax and
-the parallel paths).
+tensor parallelism).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 from typing import List, Optional
 
 import torch
@@ -110,14 +111,15 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    "scripts/acceptance_run.py on the card.")
     p.add_argument("--faithful_quirks", type=_bool, default=True)
     p.add_argument("--model_parallelism", type=int, default=1,
-                   help="tensor parallelism; > 1 comes with the parallel "
-                   "port")
+                   help="tensor parallelism (the column-sharded MoE head); "
+                   "> 1 is not ported")
     p.add_argument("--sync_batch_norm", type=_bool, default=False,
-                   help="synced (cross-shard) batch-norm moments; comes "
-                   "with the parallel port")
+                   help="DBoF's batch-norm moments averaged over the "
+                   "data-parallel ranks inside the forward")
     p.add_argument("--use_shardmap_train", type=_bool, default=False,
                    help="the JAX package's explicit data-parallel train "
-                   "step; comes with the parallel port")
+                   "step; every data-parallel step of this package is "
+                   "that per-device program, so it changes nothing")
     p.add_argument("--save_model_secs", type=int, default=30 * 60)
     p.add_argument("--save_summaries_secs", type=int, default=120,
                    help="cadence of the in-graph scalar + per-variable "
@@ -196,8 +198,9 @@ def resolve_steps_per_dispatch(args: argparse.Namespace,
 def resolve_device(args: argparse.Namespace) -> torch.device:
     """The device the flags name: `--device` as `/gpu:N`, `gpu:N`, `cuda`,
     `cuda:N` or `cpu` (`/cpu:0`); the default `/gpu:0` takes its index
-    from `--gpu`. A CUDA device where CUDA is not available raises:
-    nothing falls back to the CPU on its own."""
+    from `--gpu`, or from LOCAL_RANK when a launcher sets it and `--gpu`
+    is left at 0 (one process per card). A CUDA device where CUDA is not
+    available raises: nothing falls back to the CPU on its own."""
     name = str(args.device).strip().lower().lstrip("/")
     kind, _, index = name.partition(":")
     if kind == "cpu":
@@ -206,7 +209,7 @@ def resolve_device(args: argparse.Namespace) -> torch.device:
         raise ValueError(f"--device {args.device!r}: expected /gpu:N, cuda:N "
                          "or cpu")
     if name == "gpu:0":
-        index = str(args.gpu)
+        index = str(args.gpu or os.environ.get("LOCAL_RANK", 0))
     if not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device} asks for a CUDA device and "
                            "none is available; pass --device cpu to run on "
@@ -220,16 +223,12 @@ def resolve_device(args: argparse.Namespace) -> torch.device:
 
 def check_ported(args: argparse.Namespace) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a flag the
-    port does not cover yet: orbax checkpoints and the parallel paths."""
+    port does not cover yet: orbax checkpoints and tensor parallelism."""
     if args.checkpoint_format == "orbax":
         raise NotImplementedError(
             "--checkpoint_format orbax is not ported yet (ROADMAP Queue 1, "
-            "parallel and orbax); use msgpack")
-    if getattr(args, "use_shardmap_train", False):
-        raise NotImplementedError(
-            "--use_shardmap_train comes with the parallel port (ROADMAP "
-            "Queue 1, parallel and orbax)")
+            "orbax checkpoints); use msgpack")
     if getattr(args, "model_parallelism", 1) > 1:
         raise NotImplementedError(
-            "--model_parallelism > 1 comes with the parallel port (ROADMAP "
-            "Queue 1, parallel and orbax)")
+            "--model_parallelism > 1 (the column-sharded MoE head) is not "
+            "ported yet (ROADMAP Queue 1, the tensor-parallel MoE head)")

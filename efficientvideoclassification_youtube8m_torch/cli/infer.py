@@ -41,7 +41,6 @@ from efficientvideoclassification_youtube8m_torch.ensemble import (
 from efficientvideoclassification_youtube8m_torch.ops.quantize import (
     quantize_hierarchical_params,
 )
-from efficientvideoclassification_youtube8m_torch.parallel import distributed
 from efficientvideoclassification_youtube8m_torch.train.checkpoint import (
     latest_checkpoint,
     restore_subtree,
@@ -81,7 +80,6 @@ def rescale_bias_param(model: nn.Module, tensor_path: str, alpha: float
 
 
 def inference(args) -> None:
-    distributed.initialize()
     flags_lib.check_ported(args)
     cfg = flags_lib.config_from_args(args)
     aggregated = not args.frame_features

@@ -49,7 +49,7 @@ def print_tensors_in_checkpoint_file(
     if os.path.isdir(file_name):
         raise NotImplementedError(
             f"{file_name} is an orbax checkpoint; orbax is not ported yet "
-            "(ROADMAP Queue 1, parallel and orbax)")
+            "(ROADMAP Queue 1, orbax checkpoints)")
     raw = msgpack_io.load(file_name)
 
     def walk(node, path=""):

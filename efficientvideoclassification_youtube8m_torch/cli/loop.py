@@ -11,7 +11,9 @@ step N+1, so host logging overlaps device work), saves on the
 save_model_secs cadence through the
 AsyncCheckpointSaver, writes graph summaries on the save_summaries_secs
 cadence, and on Ctrl-C saves, logs the pending step, joins the writer and
-closes the summary writer.
+closes the summary writer. Under a process group the loader goes through
+`distributed.sync_host_streams` (every rank stops when one runs dry) and
+the master's clock decides the cadences for every rank.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import time
 from collections import deque
 
 import torch
+
+from efficientvideoclassification_youtube8m_torch.parallel import distributed
 
 
 def device_prefetch(loader, device: torch.device, depth: int = 1,
@@ -105,18 +109,21 @@ def run_training_loop(*, loader, device, state, step_fn, saver, writer, cfg,
     pending = None  # (HostFetch of the metrics, host_labels, batch_start_time)
     interrupted = False
     try:
-        for (f, l, n), host_labels in device_prefetch(loader, device):
+        for (f, l, n), host_labels in device_prefetch(
+                distributed.sync_host_streams(loader, "train"), device):
             batch_start_time = time.time()
             state, metrics = step_fn(state, f, l, n)
             metrics = HostFetch(metrics)
             if pending is not None:
                 lagged = pending[0].get()
                 log_step(lagged, pending[1], batch_start_time - pending[2])
-                if time.time() - last_summary > args.save_summaries_secs:
+                if distributed.broadcast_flag(
+                        time.time() - last_summary > args.save_summaries_secs):
                     write_graph_summaries(lagged, int(lagged["global_step"]), state)
                     last_summary = time.time()
             pending = (metrics, host_labels, batch_start_time)
-            if time.time() - last_save > args.save_model_secs:
+            if distributed.broadcast_flag(
+                    time.time() - last_save > args.save_model_secs):
                 # named by the step stored IN the saved state (the
                 # reference's Saver uses the graph's global_step,
                 # train.py:502), not by the lagged log step

@@ -1,10 +1,14 @@
 """Student validator with the teacher present for L_REP (port of the JAX
-package's cli/validate.py, single process on one device).
+package's cli/validate.py): one process per device, each rank
+evaluating its slice of the shards under a `torch.distributed` group.
 
 Evaluates the STUDENT on validation shards while running the teacher to
 report the representation loss; waits for new checkpoints unless
 --run_once. In bf16 on a CUDA device both towers' recurrences run in the
-forward-only kernel (`--use_pallas_inference`, default on).
+forward-only kernel (`--use_pallas_inference`, default on). Under a
+group the master names the checkpoint, every rank's valid rows are
+gathered before the host metrics (the epoch metrics are those of one
+process), and the master alone writes summaries.
 """
 
 from __future__ import annotations
@@ -19,6 +23,10 @@ from typing import Optional
 from efficientvideoclassification_youtube8m_torch.cli import flags as flags_lib
 from efficientvideoclassification_youtube8m_torch.cli.loop import HostFetch, device_prefetch
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
+from efficientvideoclassification_youtube8m_torch.parallel.mesh import create_mesh
+from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
+    build_sharded_validate_step,
+)
 from efficientvideoclassification_youtube8m_torch.train.checkpoint import (
     latest_checkpoint,
     restore_subtree,
@@ -27,7 +35,6 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
     DistillState,
     init_model,
 )
-from efficientvideoclassification_youtube8m_torch.train.step import build_validate_step
 from efficientvideoclassification_youtube8m_torch.utils import summary as summary_lib
 from efficientvideoclassification_youtube8m_torch.data import (
     AggregatedDataLoader,
@@ -42,13 +49,20 @@ EVAL_FIELDS = ("global_step", "dropout_keep_prob")
 
 
 def eval_loader(cfg, args, frame_stride: int = 1, aggregated: bool = False,
-                pattern: Optional[str] = None) -> FrameDataLoader:
+                pattern: Optional[str] = None,
+                host: Optional[distributed.HostContext] = None
+                ) -> FrameDataLoader:
     """One ordered pass over `pattern` (default --eval_data_pattern), the
-    final batch padded; with `aggregated`, of pre-aggregated Examples."""
+    final batch padded; with `aggregated`, of pre-aggregated Examples.
+    With `host`, this rank's shards and its slice of the batch."""
     loader_cls = AggregatedDataLoader if aggregated else FrameDataLoader
+    if host is None:
+        host = distributed.host_context(cfg.batch_size)
     return loader_cls(
         args.eval_data_pattern if pattern is None else pattern,
-        batch_size=cfg.batch_size,
+        batch_size=host.local_batch_size,
+        shard_index=host.process_index,
+        num_shards=host.process_count,
         feature_names=cfg.feature_names_list,
         feature_sizes=cfg.feature_sizes_list,
         max_frames=cfg.max_num_frames,
@@ -96,7 +110,8 @@ def run_eval_epoch(cfg, args, loader, device, launch, global_step_val, writer,
     ring: deque = deque()
     depth = max(1, cfg.fetch_depth)
     for (f, l, n), (labels, pad) in device_prefetch(
-            loader, device, host_keep=lambda b: (b.labels, b.pad)):
+            distributed.sync_host_streams(loader, "eval"), device,
+            host_keep=lambda b: (b.labels, b.pad)):
         ring.append((HostFetch(launch(f, l, n), keys), labels, pad))
         if len(ring) > depth:
             drain(*ring.popleft())
@@ -113,10 +128,12 @@ def run_eval_epoch(cfg, args, loader, device, launch, global_step_val, writer,
 
 def poll_checkpoints(cfg, args, evaluate_checkpoint, log) -> None:
     """Evaluate each new latest checkpoint of --train_dir; once with
-    --run_once, else poll every 30 s."""
+    --run_once, else poll every 30 s. The master names the checkpoint, so
+    every rank evaluates the same one."""
     last_checkpoint = None
     while True:
-        ckpt = latest_checkpoint(cfg.train_dir)
+        ckpt = distributed.broadcast_str(
+            latest_checkpoint(cfg.train_dir) if distributed.is_master() else None)
         if ckpt is None:
             log.info("No checkpoint yet in %s; waiting.", cfg.train_dir)
         elif ckpt != last_checkpoint:
@@ -130,7 +147,6 @@ def poll_checkpoints(cfg, args, evaluate_checkpoint, log) -> None:
 
 def evaluate(args):
     """Returns the epoch metrics of the last checkpoint evaluated."""
-    distributed.initialize()
     flags_lib.check_ported(args)
     cfg = flags_lib.config_from_args(args)
     if not args.frame_features:
@@ -141,21 +157,26 @@ def evaluate(args):
             "video-level models with cli.eval --frame_features=False.")
     flags_lib.resolve_steps_per_dispatch(args, logger=logger)
     device = flags_lib.resolve_device(args)
+    distributed.initialize(device=device)
+    host = distributed.host_context(cfg.batch_size)
     # parameters only: the optimizer slots this binary never reads are
     # neither allocated nor restored
     state = DistillState(teacher=init_model(cfg, device=device),
                          student=init_model(cfg, device=device),
                          opt_teacher={}, opt_student={}, global_step=0,
                          dropout_keep_prob=cfg.dropout)
-    step_fn = build_validate_step(cfg, top_k=args.top_k)
-    writer = summary_lib.SummaryWriter(os.path.join(cfg.train_dir, "eval"))
+    step_fn = build_sharded_validate_step(
+        cfg, create_mesh(model=args.model_parallelism, device=device),
+        top_k=args.top_k)
+    writer = summary_lib.for_master(os.path.join(cfg.train_dir, "eval"),
+                                    host.is_master)
     results = []
 
     def evaluate_checkpoint(ckpt):
         restore_subtree(ckpt, state,
                         ("params_teacher", "params_student") + EVAL_FIELDS)
         results.append(run_eval_epoch(
-            cfg, args, eval_loader(cfg, args), device,
+            cfg, args, eval_loader(cfg, args, host=host), device,
             lambda f, l, n: step_fn(state.teacher, state.student, f, l, n),
             state.global_step, writer, logger, with_lrep=True))
 

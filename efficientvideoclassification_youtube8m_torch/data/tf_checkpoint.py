@@ -1,6 +1,6 @@
-"""Pure-Python reader for TensorFlow Saver V2 checkpoints (the reader of
-the JAX package's data/tf_checkpoint.py; its writer comes with the
-checkpoint interop item of the ROADMAP, which is what needs it).
+"""Pure-Python reader and writer for TensorFlow Saver V2 checkpoints (a
+port of the JAX package's data/tf_checkpoint.py; the writer's bundles are
+byte for byte the JAX writer's for the same tensors).
 
 The reference framework's artifacts are TF-V2 checkpoint bundles — a
 `<prefix>.index` file (an immutable LevelDB-style table mapping tensor
@@ -36,9 +36,11 @@ import numpy as np
 from efficientvideoclassification_youtube8m_torch.data.proto import (
     iter_fields,
     read_varint,
+    write_varint,
 )
 from efficientvideoclassification_youtube8m_torch.data.tfrecord import (
     crc32c,
+    masked_crc32c,
     unmask_crc32c,
 )
 
@@ -305,6 +307,103 @@ class TFCheckpointReader:
 
     def read_all(self) -> Dict[str, np.ndarray]:
         return {n: self.get_tensor(n) for n in self.variable_names()}
+
+
+# ---------------------------------------------------------------------------
+# Writer: the inverse of the reader, a TF Saver-V2 bundle that the
+# reference's `tf.train.Saver` and `NewCheckpointReader`
+# (inspect_checkpoint_myfile.py) consume.
+# ---------------------------------------------------------------------------
+
+_DTYPE_CODES = {dt: code for code, dt in _DTYPES.items() if code != 14}
+
+
+def _ld_field(num: int, payload: bytes) -> bytes:
+    return write_varint((num << 3) | 2) + write_varint(len(payload)) + payload
+
+
+def _vi_field(num: int, value: int) -> bytes:
+    return write_varint(num << 3) + write_varint(value)
+
+
+def _encode_bundle_entry(dtype_code: int, shape: Tuple[int, ...],
+                         offset: int, size: int, crc_masked: int) -> bytes:
+    shape_proto = b"".join(
+        _ld_field(2, _vi_field(1, d)) for d in shape  # Dim{size}
+    )
+    out = _vi_field(1, dtype_code) + _ld_field(2, shape_proto)
+    if offset:
+        out += _vi_field(4, offset)
+    out += _vi_field(5, size)
+    out += struct.pack("<BI", (6 << 3) | 5, crc_masked)  # fixed32
+    return out
+
+
+def _encode_block(entries) -> bytes:
+    """One LevelDB table block: no prefix compression (shared=0), a
+    single restart point; valid for any reader (a seek scans the block)."""
+    out = bytearray()
+    for key, value in entries:
+        out += write_varint(0) + write_varint(len(key))
+        out += write_varint(len(value)) + key + value
+    out += struct.pack("<II", 0, 1)  # restarts=[0], num_restarts=1
+    return bytes(out)
+
+
+def write_tf_checkpoint(prefix: str, tensors: Dict[str, np.ndarray]) -> str:
+    """Write `<prefix>.index` + `<prefix>.data-00000-of-00001` holding
+    `tensors` (name -> array, little-endian C order), in TF's
+    tensor_bundle format (the reader above and TF agree on every crc).
+    Returns `prefix`."""
+    os.makedirs(os.path.dirname(os.path.abspath(prefix)), exist_ok=True)
+    names = sorted(tensors)
+    data_path = f"{prefix}.data-00000-of-00001"
+    kv = []
+    offset = 0
+    with open(data_path, "wb") as f:
+        for name in names:
+            # asarray, not ascontiguousarray: the latter promotes 0-d
+            # scalars to shape (1,); tobytes(order="C") handles layout
+            arr = np.asarray(tensors[name])
+            if arr.dtype.byteorder == ">":
+                arr = arr.astype(arr.dtype.newbyteorder("<"))
+            code = _DTYPE_CODES.get(arr.dtype)
+            if code is None:
+                raise ValueError(
+                    f"tensor {name!r}: dtype {arr.dtype} has no TF "
+                    "DataType mapping")
+            raw = arr.tobytes(order="C")
+            f.write(raw)
+            kv.append((name.encode("utf-8"), _encode_bundle_entry(
+                code, tuple(arr.shape), offset, len(raw),
+                masked_crc32c(raw))))
+            offset += len(raw)
+
+    # BundleHeaderProto at key "": one shard, little-endian (default 0),
+    # version {producer: 1} (what TF's BundleWriter stamps)
+    header = _vi_field(1, 1) + _ld_field(3, _vi_field(1, 1))
+    kv.insert(0, (b"", header))
+
+    buf = bytearray()
+
+    def append_block(block: bytes):
+        off = len(buf)
+        buf.extend(block)
+        buf.append(0)  # compression: none
+        buf.extend(struct.pack("<I", masked_crc32c(block + b"\x00")))
+        return off, len(block)
+
+    data_off, data_size = append_block(_encode_block(kv))
+    meta_off, meta_size = append_block(_encode_block([]))
+    handle = write_varint(data_off) + write_varint(data_size)
+    index_off, index_size = append_block(_encode_block([(kv[-1][0], handle)]))
+    footer = (write_varint(meta_off) + write_varint(meta_size)
+              + write_varint(index_off) + write_varint(index_size))
+    footer += b"\x00" * (_FOOTER_SIZE - 8 - len(footer))
+    footer += struct.pack("<Q", _TABLE_MAGIC)
+    with open(prefix + ".index", "wb") as f:
+        f.write(bytes(buf) + footer)
+    return prefix
 
 
 def is_tf_checkpoint(prefix: str) -> bool:

@@ -82,8 +82,10 @@ def dense(w: torch.Tensor, x: torch.Tensor, b: Optional[torch.Tensor] = None
     """``x @ w (+ b)`` over the last axis with a float32 result. Operands
     of a lower precision are multiplied on their exact values in float32,
     so the sum is accumulated and returned unrounded, as
-    ``preferred_element_type=float32`` does."""
-    y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    ``preferred_element_type=float32`` does; float64 operands stay
+    float64."""
+    acc = torch.promote_types(torch.promote_types(x.dtype, w.dtype), torch.float32)
+    y = torch.matmul(x.to(acc), w.to(acc))
     if b is not None:
         y = y + b
     return y

@@ -119,7 +119,8 @@ class HierarchicalLstmModel(nn.Module):
         l1_state = scan_fn(self.rnn_l1, x_chunks, seq_l1)
 
         # L2: scan over the per-chunk final states.
-        l2_input = l1_state.reshape(B, num_chunks, -1).to(torch.float32)
+        l2_input = l1_state.reshape(B, num_chunks, -1).to(
+            torch.promote_types(l1_state.dtype, torch.float32))
         seq_l2 = torch.ceil(
             num_frames.to(torch.float32) / float(chunk_len)).to(torch.int32)
         state = scan_fn(self.rnn_l2, l2_input, seq_l2)
@@ -217,14 +218,31 @@ def _bn_init(dim: int, device=None) -> Params:
 
 
 def _bn_apply(p: Params, x: torch.Tensor, is_training: bool,
-              momentum: float = 0.999, eps: float = 1e-3):
+              momentum: float = 0.999, eps: float = 1e-3, group=None):
     """slim.batch_norm: the batch's mean and population variance in
     training (the moving averages decayed by `momentum` toward them),
     the moving statistics at inference. Returns (normalized, the new
-    moving statistics by name, detached; empty at inference)."""
+    moving statistics by name, detached; empty at inference).
+
+    With `group` (synced batch norm across data-parallel ranks, the JAX
+    `axis_name`), the batch moments are averaged over the ranks inside
+    the forward, in one differentiable all-reduce, so the normalization,
+    its gradients and the moving averages are those of one program over
+    the global batch (the ranks' batches are equal in size)."""
     if is_training:
-        mean = torch.mean(x, dim=0)
-        var = torch.var(x, dim=0, correction=0)
+        if group is not None:
+            from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
+                all_reduce_sum,
+            )
+
+            moments = torch.cat([torch.mean(x, dim=0),
+                                 torch.mean(torch.square(x), dim=0)])
+            moments = all_reduce_sum(moments, group) / torch.distributed.get_world_size(group)
+            mean, mean_sq = moments.chunk(2)
+            var = mean_sq - torch.square(mean)
+        else:
+            mean = torch.mean(x, dim=0)
+            var = torch.var(x, dim=0, correction=0)
         new = {"moving_mean": momentum * p.moving_mean + (1 - momentum) * mean,
                "moving_var": momentum * p.moving_var + (1 - momentum) * var}
         new = {name: value.detach() for name, value in new.items()}
@@ -275,7 +293,7 @@ class DbofModel(nn.Module):
                 classifier: Optional[str] = None,
                 add_batch_norm: Optional[bool] = None,
                 is_training: bool = True, rng: Optional[prng.Key] = None,
-                **classifier_kwargs) -> Dict[str, Any]:
+                bn_group=None, **classifier_kwargs) -> Dict[str, Any]:
         _check_classifier(self, classifier)
         if add_batch_norm is not None and add_batch_norm != self.add_batch_norm:
             raise ValueError(f"the module was built with add_batch_norm="
@@ -295,7 +313,8 @@ class DbofModel(nn.Module):
         updated = {}
 
         def norm(name, value):
-            value, new = _bn_apply(getattr(self, name), value, is_training)
+            value, new = _bn_apply(getattr(self, name), value, is_training,
+                                   group=bn_group)
             updated.update({f"{name}.{k}": v for k, v in new.items()})
             return value
 

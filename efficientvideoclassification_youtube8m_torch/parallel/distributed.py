@@ -1,37 +1,307 @@
-"""The single-process subset of the JAX package's parallel/distributed.py
-(which imports jax, so it is ported, not imported): the multi-host guard,
-the eval loops' host-pack decoding (`unpack_host_pack`) and their
-per-batch row assembly (`gather_eval_rows`, `gather_step_outputs`).
-Multi-host runs are ROADMAP Queue 1, parallel and orbax.
+"""Multi-process runtime helpers (port of the JAX package's
+parallel/distributed.py over `torch.distributed`).
+
+The reference's distribution story is a TF1 grpc parameter-server
+scaffold keyed off TF_CONFIG (`train.py:654-733`). The port runs one
+process per device:
+
+  * `initialize()`: `torch.distributed.init_process_group` from the
+    reference's TF_CONFIG cluster spec or the standard MASTER_ADDR /
+    MASTER_PORT / RANK / WORLD_SIZE variables, with an explicit timeout
+    (a missing peer is an error, never a hang); NCCL for a CUDA device,
+    gloo on the CPU. Host-side collectives (stream sync, broadcasts, the
+    eval-row gather) run on a gloo group of their own, so they take CPU
+    tensors whatever the device backend;
+  * `host_context()`: which slice of the input shards this process reads
+    and how many rows of the GLOBAL `--batch_size` it loads;
+  * `sync_host_streams`, `broadcast_flag`, `broadcast_str`,
+    `gather_eval_rows`: what keeps every rank in the same collective
+    step and gives the eval binaries the single-process row stream.
+
+With no cluster in the environment every helper is a passthrough.
+Fault tolerance is the reference's: periodic checkpoints and
+relaunch-and-resume.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import datetime
 import json
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
+
+# how long a rank waits for its peers at start-up and in a collective
+DEFAULT_TIMEOUT = datetime.timedelta(seconds=600)
+
+_HOST_GROUP = None  # the gloo group of the host-side collectives
 
 
-def _tf_config_processes() -> int:
-    """The number of processes the reference's TF_CONFIG cluster spec
-    names (train.py:710-718): its masters plus workers; 1 without one."""
-    raw = os.environ.get("TF_CONFIG")
+def parse_tf_config(env: Optional[dict] = None) -> Optional[dict]:
+    """The reference's TF_CONFIG cluster spec (train.py:710-718): masters
+    first, then workers, so process ids are unique across both jobs."""
+    env = os.environ if env is None else env
+    raw = env.get("TF_CONFIG")
     if not raw:
-        return 1
-    cluster = json.loads(raw).get("cluster", {})
-    return len(cluster.get("master", []) + cluster.get("worker", [])) or 1
+        return None
+    cfg = json.loads(raw)
+    cluster = cfg.get("cluster", {})
+    task = cfg.get("task", {"type": "master", "index": 0})
+    masters = cluster.get("master", [])
+    workers = cluster.get("worker", [])
+    hosts = masters + workers
+    index = int(task.get("index", 0))
+    task_type = task.get("type", "master")
+    process_id = index if task_type == "master" else len(masters) + index
+    return {
+        "coordinator": hosts[0] if hosts else None,
+        "num_processes": len(hosts) or 1,
+        "process_id": process_id,
+        "task_type": task_type,
+    }
 
 
-def initialize() -> None:
-    """The JAX package brings up its multi-host runtime here from
-    TF_CONFIG or JAX's coordinator variables; the port runs one process
-    and raises when the environment names a cluster."""
-    if _tf_config_processes() > 1 or "JAX_COORDINATOR_ADDRESS" in os.environ:
-        raise NotImplementedError(
-            "multi-host runs (a TF_CONFIG cluster or JAX_COORDINATOR_ADDRESS) "
-            "come with the parallel port (ROADMAP Queue 1, parallel and orbax)")
+def _from_environment() -> Tuple[Optional[str], Optional[int], Optional[int]]:
+    """(coordinator host:port, world size, rank) that TF_CONFIG or the
+    MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE variables name, else Nones."""
+    tfc = parse_tf_config()
+    if tfc and tfc["num_processes"] > 1:
+        return tfc["coordinator"], tfc["num_processes"], tfc["process_id"]
+    env = os.environ
+    if "MASTER_ADDR" in env and "WORLD_SIZE" in env:
+        return (f"{env['MASTER_ADDR']}:{env.get('MASTER_PORT', '29500')}",
+                int(env["WORLD_SIZE"]), int(env.get("RANK", 0)))
+    return None, None, None
+
+
+def initialize(coordinator_address: Optional[str] = None,
+               num_processes: Optional[int] = None,
+               process_id: Optional[int] = None,
+               device: Optional[torch.device] = None,
+               backend: Optional[str] = None,
+               timeout: Optional[datetime.timedelta] = None) -> None:
+    """Join the process group that the arguments or the environment name
+    (TF_CONFIG first, then MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE); a
+    no-op for a single process or when a group is already up (several
+    binaries' mains in one process).
+
+    The backend is `backend`, else NCCL when `device` is a CUDA device
+    and gloo otherwise. A peer that does not join within `timeout`
+    (default `DEFAULT_TIMEOUT`) raises (torch.distributed's DistError)."""
+    global _HOST_GROUP
+    if dist.is_initialized():
+        return
+    if coordinator_address is None:
+        coordinator_address, num_processes, process_id = _from_environment()
+    if coordinator_address is None:
+        return  # single process
+    device = torch.device("cpu") if device is None else torch.device(device)
+    timeout = DEFAULT_TIMEOUT if timeout is None else timeout
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    kwargs = {}
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        if backend == "nccl":
+            kwargs["device_id"] = device
+    dist.init_process_group(
+        backend, init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id, timeout=timeout, **kwargs)
+    _HOST_GROUP = (dist.new_group(backend="gloo", timeout=timeout)
+                   if backend != "gloo" else dist.group.WORLD)
+
+
+def shutdown() -> None:
+    """Leave the process group (the end of a multi-process run)."""
+    global _HOST_GROUP
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _HOST_GROUP = None
+
+
+def world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def host_shard() -> Tuple[int, int]:
+    """(shard_index, num_shards) for this process's input pipeline."""
+    return rank(), world_size()
+
+
+def is_master() -> bool:
+    """The reference's master election (`train.py:444`)."""
+    return rank() == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class HostContext:
+    """One process's place in the cluster (the reference's task index /
+    is_chief, `train.py:704-733`): which input shards it reads, how many
+    rows of the GLOBAL batch it loads, and whether it owns the side
+    effects (summaries, checkpoints, exports)."""
+
+    process_index: int
+    process_count: int
+    local_batch_size: int
+    is_master: bool
+
+    @property
+    def multi_host(self) -> bool:
+        return self.process_count > 1
+
+
+def host_context(global_batch_size: int) -> HostContext:
+    """This process's role after `initialize()`. `--batch_size` keeps its
+    single-process meaning, the GLOBAL batch; each process loads its
+    `1/process_count` slice."""
+    index, count = host_shard()
+    if global_batch_size % count:
+        raise ValueError(f"--batch_size {global_batch_size} not divisible "
+                         f"by {count} processes")
+    return HostContext(process_index=index, process_count=count,
+                       local_batch_size=global_batch_size // count,
+                       is_master=index == 0)
+
+
+def _dummy_batch(loader):
+    """A fully padded batch (pad == batch rows) of the loader's shapes."""
+    from efficientvideoclassification_youtube8m_torch.data import (
+        AggregatedBatch,
+        AggregatedDataLoader,
+        FrameBatch,
+    )
+
+    b = loader.batch_size
+    labels = np.zeros((b, loader.vocab_size), bool)
+    if isinstance(loader, AggregatedDataLoader):
+        return AggregatedBatch(video_ids=[""] * b, labels=labels, pad=b,
+                               features=np.zeros((b, loader.total_size),
+                                                 np.float32))
+    rows = getattr(loader, "feature_rows", loader.max_frames)
+    return FrameBatch(video_ids=[""] * b, labels=labels, pad=b,
+                      features=np.zeros((b, rows, loader.total_size), np.uint8),
+                      num_frames=np.ones((b,), np.int32))
+
+
+def sync_host_streams(loader, mode: str = "train"):
+    """Keep every rank's step count identical. Shards are never perfectly
+    balanced, and a rank that runs dry while the others step would leave
+    them waiting in the next collective. Each iteration reduces a 1-bit
+    "I have a batch" flag over the ranks:
+
+      * mode="train": every rank stops as soon as ANY rank is dry (the
+        cluster-wide drop_remainder);
+      * mode="eval": run until EVERY rank is dry; a dry rank feeds fully
+        padded dummy batches, whose rows the eval gather drops, so no
+        real example is lost.
+
+    One process: a passthrough."""
+    if mode not in ("train", "eval"):
+        raise ValueError(f"mode must be 'train' or 'eval', got {mode!r}")
+    if world_size() == 1:
+        yield from loader
+        return
+    op = dist.ReduceOp.MIN if mode == "train" else dist.ReduceOp.MAX
+    it = iter(loader)
+    while True:
+        batch = next(it, None)
+        flag = torch.tensor([0 if batch is None else 1], dtype=torch.int32)
+        dist.all_reduce(flag, op=op, group=_HOST_GROUP)
+        if not int(flag):
+            return
+        yield _dummy_batch(loader) if batch is None else batch
+
+
+def all_ranks_agree(value: bool) -> bool:
+    """True on every rank when `value` holds on every rank. One process:
+    `value`."""
+    if world_size() == 1:
+        return value
+    flag = torch.tensor([1 if value else 0], dtype=torch.int32)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=_HOST_GROUP)
+    return bool(int(flag))
+
+
+def broadcast_flag(value: bool) -> bool:
+    """The MASTER's boolean decision on every rank: wall-clock triggers
+    (save_model_secs, save_summaries_secs) must fire on every rank in the
+    same step. One process: a passthrough."""
+    if world_size() == 1:
+        return value
+    flag = torch.tensor([1 if value else 0], dtype=torch.int32)
+    dist.broadcast(flag, src=0, group=_HOST_GROUP)
+    return bool(int(flag))
+
+
+_TOO_LONG = b"\x01TOO_LONG"
+
+
+def broadcast_str(value: Optional[str], max_len: int = 1024) -> Optional[str]:
+    """A (possibly None) string from the master on every rank: the
+    checkpoint to resume or evaluate, so every rank restores the same
+    one. A string longer than `max_len` raises on every rank together.
+    One process: a passthrough."""
+    if world_size() == 1:
+        return value
+    buf = torch.zeros(max_len, dtype=torch.uint8)
+    if is_master() and value:
+        raw = value.encode("utf-8")
+        if len(raw) > max_len:
+            raw = _TOO_LONG  # raising here would strand the other ranks
+        buf[: len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    dist.broadcast(buf, src=0, group=_HOST_GROUP)
+    raw = bytes(buf[buf != 0].numpy())
+    if raw == _TOO_LONG:
+        raise ValueError(f"broadcast string longer than {max_len} bytes")
+    return raw.decode("utf-8") if raw else None
+
+
+def all_gather_arrays(arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Each array of every rank, concatenated along axis 0 in rank order,
+    in ONE collective on the host group. The ranks' arrays must agree in
+    names, shapes and dtypes."""
+    arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+    raw = np.concatenate([v.reshape(-1).view(np.uint8) for v in arrays.values()])
+    parts = [torch.empty(raw.size, dtype=torch.uint8) for _ in range(world_size())]
+    dist.all_gather(parts, torch.from_numpy(raw), group=_HOST_GROUP)
+    out: Dict[str, list] = {k: [] for k in arrays}
+    for part in parts:
+        buf, offset = part.numpy(), 0
+        for key, value in arrays.items():
+            out[key].append(buf[offset:offset + value.nbytes].view(value.dtype)
+                            .reshape(value.shape))
+            offset += value.nbytes
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
+def gather_eval_rows(arrays: Dict[str, Any], pad: int
+                     ) -> Tuple[Dict[str, np.ndarray], int]:
+    """The GLOBAL eval rows of one step: every rank's valid rows (its
+    batch without its `pad` trailing padding rows) in rank order, so the
+    epoch metrics (GAP's global top-k heap in particular) see the stream
+    a single process would, and the summed pad. The pad counts ride in
+    the same collective as the rows. One process: the rows without the
+    padding."""
+    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    if world_size() == 1:
+        if pad:
+            arrays = {k: v[: v.shape[0] - pad] for k, v in arrays.items()}
+        return arrays, pad
+    block = next(iter(arrays.values())).shape[0]
+    gathered = all_gather_arrays(
+        dict(arrays, __pad__=np.asarray([pad], np.int32)))
+    pads = gathered.pop("__pad__")
+    keep = np.concatenate([np.arange(p * block, (p + 1) * block - int(pads[p]))
+                           for p in range(len(pads))])
+    return {k: v[keep] for k, v in gathered.items()}, int(pads.sum())
 
 
 def _paired_k(m: int):
@@ -76,19 +346,11 @@ def unpack_host_pack(pack: np.ndarray, labels) -> Dict[str, Any]:
     }
 
 
-def gather_eval_rows(arrays: Dict[str, Any], pad: int) -> Dict[str, np.ndarray]:
-    """The eval rows of one batch without its `pad` trailing padding rows
-    (the single-process case of the JAX package's cross-host gather)."""
-    arrays = {k: np.asarray(v) for k, v in arrays.items()}
-    if pad:
-        arrays = {k: v[: v.shape[0] - pad] for k, v in arrays.items()}
-    return arrays
-
-
 def gather_step_outputs(out: Dict[str, Any], labels, pad: int
                         ) -> Dict[str, np.ndarray]:
     """The eval binaries' per-batch assembly: the step's packed host
-    bundle crosses to the host in ONE transfer and is unpacked, and the
-    padding rows are dropped."""
+    bundle crosses to the host in ONE transfer, is unpacked, and every
+    rank's valid rows are gathered (`gather_eval_rows`)."""
     pack = out["host_pack"].cpu().numpy()
-    return gather_eval_rows(unpack_host_pack(pack, labels), pad)
+    rows, _ = gather_eval_rows(unpack_host_pack(pack, labels), pad)
+    return rows

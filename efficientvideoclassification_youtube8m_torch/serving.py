@@ -62,14 +62,10 @@ class Predictor:
             raise ValueError(f"tower must be 'student' or 'teacher', got {tower!r}")
         if quantize not in ("none", "int8"):
             raise ValueError(f"quantize must be 'none' or 'int8', got {quantize!r}")
-        if sequence_parallel:
+        if sequence_parallel or mesh is not None:
             raise NotImplementedError(
-                "sequence-parallel serving comes with the parallel port "
-                "(ROADMAP Queue 1, parallel and orbax)")
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel serving comes with the parallel port "
-                "(ROADMAP Queue 1, parallel and orbax)")
+                "serving over a mesh (sequence-parallel or sharded) is not "
+                "ported yet (ROADMAP Queue 1, sequence-parallel serving)")
         self.cfg = cfg
         self.tower = tower
         self.serve_batch = serve_batch

@@ -6,8 +6,15 @@ A checkpoint is `model.ckpt-<step>.msgpack` in the JAX package's layout
 `train/msgpack_io.py`: the JAX package's `restore_checkpoint` reads the
 port's files and the port reads the JAX package's. The `checkpoint`
 pointer file lists basenames latest first; `max_to_keep` removes the
-oldest. Orbax directories and the reference's TF-V2 bundles are not
-ported and raise.
+oldest. The reference's TF-V2 bundles (`model.ckpt-N.index` +
+`.data-*`) restore through `train/tf_import.py`, so a reference
+train_dir trains on, validates, evaluates and serves without a
+conversion step. Orbax directories are not ported and raise.
+
+Under a process group the state is replicated on every rank (the JAX
+rule for msgpack checkpoints: a data-parallel state), so the master alone
+writes the file and the pointer; every rank calls the savers, which agree
+on the outcome of the previous asynchronous write before they go on.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from efficientvideoclassification_youtube8m_torch.parallel import distributed
 from efficientvideoclassification_youtube8m_torch.train import msgpack_io
 from efficientvideoclassification_youtube8m_torch.train.state import (
     DistillState,
@@ -32,6 +40,10 @@ from efficientvideoclassification_youtube8m_torch.data.tf_checkpoint import (
     is_tf_checkpoint,
     latest_tf_checkpoint,
 )
+from efficientvideoclassification_youtube8m_torch.train.tf_import import (
+    import_tf_checkpoint,
+    read_tf_tree,
+)
 
 _POINTER = "checkpoint"
 _PREFIX = "model.ckpt"
@@ -40,8 +52,8 @@ _PREFIX = "model.ckpt"
 def _check_backend(backend: str) -> None:
     if backend == "orbax":
         raise NotImplementedError(
-            "orbax checkpoints are not ported yet (ROADMAP Queue 1, parallel and orbax); "
-            "use --checkpoint_format msgpack")
+            "orbax checkpoints are not ported yet (ROADMAP Queue 1, orbax "
+            "checkpoints); use --checkpoint_format msgpack")
     if backend != "msgpack":
         raise ValueError(f"unknown checkpoint backend {backend!r}")
 
@@ -69,10 +81,13 @@ def save_checkpoint(train_dir: str, state: Any, step: int,
     """Write `model.ckpt-<step>.msgpack` (through `.tmp` and `os.replace`)
     and update the pointer file. `state` is a DistillState/StudentState
     or a tree of the codec's types and tensors. The reference keeps only
-    the latest (`Saver(max_to_keep=1)`, train.py:651)."""
+    the latest (`Saver(max_to_keep=1)`, train.py:651). Only the master
+    writes; the other ranks return the path."""
     _check_backend(backend)
-    os.makedirs(train_dir, exist_ok=True)
     path = os.path.join(train_dir, f"{_PREFIX}-{step}.msgpack")
+    if not distributed.is_master():
+        return path
+    os.makedirs(train_dir, exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         msgpack_io.dump(_tree(state), f, default=_to_numpy)
@@ -117,7 +132,11 @@ class AsyncCheckpointSaver:
 
     One save in flight at a time: a second `save()` joins the first.
     `wait()` joins and re-raises a failure of the writer; call it before
-    reading the train_dir, and at loop exit."""
+    reading the train_dir, and at loop exit. Under a process group only
+    the master snapshots and writes, and each `save()` first agrees with
+    the other ranks on the previous write's outcome, so a failed write
+    raises on every rank at the same point instead of leaving the others
+    in the next collective."""
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
@@ -144,6 +163,19 @@ class AsyncCheckpointSaver:
     def save(self, train_dir: str, state: Any, step: int,
              max_to_keep: int = 1, backend: str = "msgpack") -> None:
         _check_backend(backend)
+        if distributed.world_size() > 1:
+            self._thread, thread = None, self._thread
+            if thread is not None:
+                thread.join()
+            failed, self._exc = self._exc, None
+            peers_ok = distributed.all_ranks_agree(failed is None)
+            if failed is not None:
+                raise failed
+            if not peers_ok:
+                raise RuntimeError("the master's checkpoint writer failed "
+                                   "(its own raise carries the error)")
+            if not distributed.is_master():
+                return
         self.wait()
         if not self.enabled:
             save_checkpoint(train_dir, state, step, max_to_keep=max_to_keep)
@@ -219,25 +251,33 @@ def checkpoint_step(path: str) -> int:
     return int(m.group(1)) if m else 0
 
 
-def read_checkpoint(path: str) -> Any:
-    """The raw tree of a msgpack checkpoint (numpy leaves). Orbax
-    directories and TF-V2 bundles raise NotImplementedError."""
+def read_checkpoint(path: str, target=None,
+                    fields: Optional[Sequence[str]] = None) -> Any:
+    """The raw tree of a checkpoint (numpy leaves): a msgpack file as it
+    is; a TF-V2 bundle (its prefix, with or without `.index`) as the JAX
+    state tree of the state `target` names, restricted to `fields`.
+    Orbax directories raise NotImplementedError."""
     if is_tf_checkpoint(path):
-        raise NotImplementedError(
-            f"{path} is a TF-V2 bundle of the reference; importing those is "
-            "ROADMAP Queue 1, checkpoint interop")
+        if target is None:
+            raise ValueError(f"{path} is a TF-V2 bundle: its variables are "
+                             "named after a state, so pass the target state")
+        return read_tf_tree(path, target, fields)
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is an orbax checkpoint; orbax is not ported yet "
-            "(ROADMAP Queue 1, parallel and orbax)")
+            "(ROADMAP Queue 1, orbax checkpoints)")
     return msgpack_io.load(path)
 
 
 def restore_checkpoint(path: str, target):
     """Restore a checkpoint into the DistillState/StudentState `target`
-    in place and return it. Every field of the target must be in the file
-    (extra fields are ignored, as flax ignores them); names, structure and
-    shapes are checked before anything is copied."""
+    in place and return it. Every field of the target must be in a
+    msgpack file (extra fields are ignored, as flax ignores them); a
+    TF-V2 bundle goes through the importer, which leaves the fields the
+    bundle lacks (the dropout keep-prob, absent Adam slots) as they are.
+    Names, structure and shapes are checked before anything is copied."""
+    if is_tf_checkpoint(path):
+        return import_tf_checkpoint(path, target)
     return load_state_tree(target, read_checkpoint(path))
 
 
@@ -245,6 +285,8 @@ def restore_subtree(path: str, target, keys: Sequence[str]):
     """Restore only the top-level fields `keys` (e.g. the parameters of
     one tower) into `target`; the explicit name->variable maps of the
     reference's validate.py:350-381 become field selection."""
+    if is_tf_checkpoint(path):
+        return import_tf_checkpoint(path, target, fields=keys)
     tree = read_checkpoint(path)
     for key in keys:
         if key not in tree:

@@ -16,10 +16,17 @@ extension hook gives for the same tree in the same key order.
 
 `dump` streams each array's bytes straight to the file, without joining
 the state into one bytes object. `load` reads the file into one buffer
-and makes each array leaf a zero-copy view of it. flax splits a leaf of
-more than ``2**30`` bytes into a ``__msgpack_chunked_array__`` map; no
-leaf of this system comes near that (the largest, the flagship MoE gate
-weights, is 232 MB), so both directions raise on it.
+and makes each array leaf a zero-copy view of it.
+
+flax writes an array leaf of more than ``MAX_CHUNK_SIZE`` (2**30) bytes
+that sits in a map (or is the whole tree) as a map
+``{"__msgpack_chunked_array__": True, "shape": {"0": d0, ...},
+"chunks": {"0": c0, ...}}`` of flat chunks of ``MAX_CHUNK_SIZE /
+itemsize`` elements (``flax.serialization._chunk``). Leaves of this size
+are real here: at ``--moe_num_mixtures 13`` the MoE gate weights are
+4096 * 14 * 4716 * 4 B = 1.08 GB. `dump` writes that form byte for byte
+as flax does, each chunk streamed from the leaf; `load` joins the chunks
+into one array (a copy of that leaf alone).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Any, BinaryIO, Callable, Optional
 import numpy as np
 
 MAX_CHUNK_SIZE = 2**30  # flax chunks array leaves above this size
+CHUNKED = "__msgpack_chunked_array__"
 EXT_NDARRAY, EXT_COMPLEX, EXT_NPSCALAR = 1, 2, 3
 _DTYPES = {np.dtype(name).name: np.dtype(name) for name in (
     "bool", "int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
@@ -103,10 +111,6 @@ def _ext_header(n: int, code: int) -> bytes:
 def _write_ndarray(f: BinaryIO, arr: np.ndarray, code: int) -> None:
     if arr.dtype.name not in _DTYPES:
         raise ValueError(f"unsupported array dtype {arr.dtype}")
-    if arr.nbytes > MAX_CHUNK_SIZE:
-        raise ValueError(
-            f"an array leaf of {arr.nbytes} bytes exceeds 2**30; flax would "
-            "write it in chunks, which this codec does not")
     if not arr.dtype.isnative:
         arr = arr.astype(arr.dtype.newbyteorder("="))
     inner = (b"\x93" + _array_header(arr.ndim) + b"".join(map(_int, arr.shape))
@@ -115,23 +119,44 @@ def _write_ndarray(f: BinaryIO, arr: np.ndarray, code: int) -> None:
     f.write(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
 
 
+def _write_chunked(f: BinaryIO, arr: np.ndarray) -> None:
+    """flax's chunked form of an array leaf (`flax.serialization._chunk`):
+    the flat array in chunks of `MAX_CHUNK_SIZE / itemsize` elements."""
+    chunk = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    count = -(-flat.size // chunk)
+    f.write(_map_header(3) + _str(CHUNKED) + b"\xc3" + _str("shape")
+            + _map_header(arr.ndim))
+    for i, d in enumerate(arr.shape):
+        f.write(_str(str(i)) + _int(d))
+    f.write(_str("chunks") + _map_header(count))
+    for i in range(count):
+        f.write(_str(str(i)))
+        _write_ndarray(f, flat[i * chunk:(i + 1) * chunk], EXT_NDARRAY)
+
+
 def dump(tree: Any, f: BinaryIO,
          default: Optional[Callable[[Any], Any]] = None) -> None:
     """Write `tree` to the binary file `f`. `default` converts a leaf of
     another type (a torch tensor, say) into one of the subset, as
     msgpack's `default` hook does; it is called once per such leaf, just
-    before the leaf is written."""
+    before the leaf is written. An array of more than `MAX_CHUNK_SIZE`
+    bytes that is a map's value or the whole tree is written in flax's
+    chunked form (flax chunks no other)."""
 
-    def write(node: Any) -> None:
+    def write(node: Any, chunkable: bool = False) -> None:
         if isinstance(node, dict):
             f.write(_map_header(len(node)))
             for key, value in node.items():
                 if not isinstance(key, str):
                     raise TypeError(f"map key {key!r} is not a str")
                 f.write(_str(key))
-                write(value)
+                write(value, True)
         elif isinstance(node, np.ndarray):
-            _write_ndarray(f, node, EXT_NDARRAY)
+            if chunkable and node.nbytes > MAX_CHUNK_SIZE:
+                _write_chunked(f, node)
+            else:
+                _write_ndarray(f, node, EXT_NDARRAY)
         elif isinstance(node, np.generic):
             _write_ndarray(f, np.asarray(node), EXT_NPSCALAR)
         elif node is None:
@@ -151,11 +176,11 @@ def dump(tree: Any, f: BinaryIO,
             for value in node:
                 write(value)
         elif default is not None:
-            write(default(node))
+            write(default(node), chunkable)
         else:
             raise TypeError(f"cannot serialize a {type(node).__name__}")
 
-    write(tree)
+    write(tree, True)
 
 
 def dumps(tree: Any, default: Optional[Callable[[Any], Any]] = None) -> bytes:
@@ -239,10 +264,8 @@ class _Reader:
         for _ in range(n):
             key = self.read()
             out[key] = self.read()
-        if "__msgpack_chunked_array__" in out:
-            raise ValueError(
-                "a chunked array leaf (flax's form for leaves over 2**30 "
-                "bytes) is not supported")
+        if CHUNKED in out:
+            return _unchunk(out)
         return out
 
     def ext(self, n: int) -> Any:
@@ -285,9 +308,20 @@ class _Reader:
         return np.frombuffer(self.buf, dtype, count, offset).reshape(shape)
 
 
+def _unchunk(node: dict) -> np.ndarray:
+    """The array of flax's chunked form (`flax.serialization._unchunk`)."""
+    try:
+        shape = tuple(node["shape"][str(i)] for i in range(len(node["shape"])))
+        chunks = [node["chunks"][str(i)] for i in range(len(node["chunks"]))]
+    except (KeyError, TypeError) as e:
+        raise ValueError("a malformed chunked array leaf") from e
+    return np.concatenate(chunks).reshape(shape)
+
+
 def loads(buf) -> Any:
     """Decode one msgpack object from a bytes-like `buf`. Array leaves are
-    views of `buf` (read-only when `buf` is bytes)."""
+    views of `buf` (read-only when `buf` is bytes), except a chunked
+    leaf, which is joined into an array of its own."""
     reader = _Reader(buf)
     tree = reader.read()
     if reader.pos != len(reader.mv):

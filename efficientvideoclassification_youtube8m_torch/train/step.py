@@ -13,7 +13,11 @@ Faithful quirks (cfg.faithful_quirks=True), as in the JAX package:
   * L_PRED sums (not means) over the batch (train.py:402).
 
 The steps update the state in place (the modules' parameters and the
-optimizer slots) and return it with their metrics.
+optimizer slots) and return it with their metrics. Given a process
+`group` (the JAX `axis_name`), the train steps are per-device programs of
+a data-parallel step (parallel/sharded_step.py): each rank takes its
+slice of the global batch, and one summed all-reduce of the gradients
+gives every rank the global-batch gradient.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from efficientvideoclassification_youtube8m_torch import losses as losses_lib
@@ -37,6 +42,11 @@ from efficientvideoclassification_youtube8m_torch.ops.preprocess import (
 )
 from efficientvideoclassification_youtube8m_torch.ops.quantize import (
     quantized_hierarchical_forward,
+)
+from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
+    all_reduce_grads,
+    mean_tensors,
+    reduce_scalars,
 )
 from efficientvideoclassification_youtube8m_torch.train.optimizer import (
     Optimizer,
@@ -72,8 +82,8 @@ def resolve_label_loss(cfg: TrainConfig) -> Callable:
 def _model_apply_kwargs(cfg: TrainConfig, device: torch.device,
                         inference: bool = False,
                         kernel_train_mode: Optional[str] = None,
-                        kernel_override: Optional[bool] = None
-                        ) -> Dict[str, Any]:
+                        kernel_override: Optional[bool] = None,
+                        bn_group=None) -> Dict[str, Any]:
     """Model keywords of the forward.
 
     Inference: the forward-only kernel for bf16 on a CUDA device when
@@ -84,7 +94,8 @@ def _model_apply_kwargs(cfg: TrainConfig, device: torch.device,
     config gives them). `kernel_train_mode` overrides the training rule:
     "on" forces the train kernels (their plain versions on CPU tensors),
     "off" the plain scan. Models without recurrences swallow these. Then
-    DBoF's flag block and the head's size, as in the JAX package."""
+    DBoF's flag block (with `bn_group`, the process group of synced
+    batch norm) and the head's size, as in the JAX package."""
     is_cuda = torch.device(device).type == "cuda"
     bf16 = cfg.compute_dtype == "bfloat16"
     kw: Dict[str, Any] = {
@@ -107,7 +118,8 @@ def _model_apply_kwargs(cfg: TrainConfig, device: torch.device,
         kw.update(iterations=cfg.iterations,
                   sample_random=cfg.sample_random_frames,
                   pooling_method=cfg.dbof_pooling_method,
-                  add_batch_norm=cfg.dbof_add_batch_norm)
+                  add_batch_norm=cfg.dbof_add_batch_norm,
+                  bn_group=bn_group)
     if cfg.video_level_classifier_model == "MoeModel":
         kw["num_mixtures"] = cfg.moe_num_mixtures
     else:
@@ -142,16 +154,16 @@ def forward_teacher(cfg: TrainConfig, model, model_input: torch.Tensor,
                     num_frames: torch.Tensor, labels=None,
                     inference: bool = False, dropout_keep_prob=1.0,
                     rng: Optional[prng.Key] = None,
-                    kernel_train_mode: Optional[str] = None):
+                    kernel_train_mode: Optional[str] = None, bn_group=None):
     """The teacher tower: all frames, `cfg.num_inputs_to_lstm` chunks.
     `labels` feed a head's own loss, `rng` its dropout (and DBoF's frame
-    sampling)."""
+    sampling); `bn_group` syncs DBoF's batch moments across ranks."""
     _check_model(cfg, model)
     return model(
         model_input, num_frames, num_chunks=cfg.num_inputs_to_lstm,
         labels=labels, dropout_keep_prob=dropout_keep_prob, rng=rng,
         **_model_apply_kwargs(cfg, model_input.device, inference,
-                              kernel_train_mode),
+                              kernel_train_mode, bn_group=bn_group),
     )
 
 
@@ -160,7 +172,7 @@ def forward_student(cfg: TrainConfig, model, model_input_student: torch.Tensor,
                     inference: bool = False, dropout_keep_prob=1.0,
                     rng: Optional[prng.Key] = None,
                     kernel_train_mode: Optional[str] = None,
-                    kernel_override: Optional[bool] = None):
+                    kernel_override: Optional[bool] = None, bn_group=None):
     """`create_model_inference`: the same architecture on the subsampled
     frames, with `cfg.num_inputs_L1` chunks."""
     _check_model(cfg, model)
@@ -168,7 +180,7 @@ def forward_student(cfg: TrainConfig, model, model_input_student: torch.Tensor,
         model_input_student, num_frames_stud, num_chunks=cfg.num_inputs_L1,
         labels=labels, dropout_keep_prob=dropout_keep_prob, rng=rng,
         **_model_apply_kwargs(cfg, model_input_student.device, inference,
-                              kernel_train_mode, kernel_override),
+                              kernel_train_mode, kernel_override, bn_group),
     )
 
 
@@ -286,28 +298,39 @@ def param_grads(loss: torch.Tensor, *modules) -> Tuple[Tensors, ...]:
     return tuple(out)
 
 
-def step_rng(cfg: TrainConfig, global_step: int) -> prng.Key:
+def step_rng(cfg: TrainConfig, global_step: int, group=None) -> prng.Key:
     """The key of a train step's dropout and frame sampling:
-    ``fold_in(PRNGKey(seed), global_step)``, as the JAX steps derive it."""
-    return prng.fold_in(prng.prng_key(cfg.seed), global_step)
+    ``fold_in(PRNGKey(seed), global_step)``, as the JAX steps derive it;
+    in a data-parallel step the rank is folded in too, as the JAX
+    shard_map steps fold `axis_index`, so the ranks' draws differ."""
+    key = prng.fold_in(prng.prng_key(cfg.seed), global_step)
+    return key if group is None else prng.fold_in(key, dist.get_rank(group))
 
 
 def _distill(cfg: TrainConfig, state: DistillState, features_u8, labels,
-             num_frames, kernel_train_mode: Optional[str] = None):
+             num_frames, kernel_train_mode: Optional[str] = None, group=None):
     label_loss_fn = resolve_label_loss(cfg)
     model_input = preprocess_batch(cfg, features_u8, num_frames)
     model_input_s = uniform_subsample(model_input, cfg.every_n)
     nf_student = student_num_frames(num_frames, cfg.every_n, cfg.max_num_frames)
-    rng_t, rng_s = prng.split(step_rng(cfg, state.global_step))
+    rng_t, rng_s = prng.split(step_rng(cfg, state.global_step, group))
+    bn_group = group if cfg.sync_batch_norm else None
     out_t = forward_teacher(cfg, state.teacher, model_input, num_frames, labels,
                             dropout_keep_prob=state.dropout_keep_prob, rng=rng_t,
-                            kernel_train_mode=kernel_train_mode)
+                            kernel_train_mode=kernel_train_mode,
+                            bn_group=bn_group)
     out_s = forward_student(cfg, state.student, model_input_s, nf_student, labels,
                             dropout_keep_prob=state.dropout_keep_prob, rng=rng_s,
-                            kernel_train_mode=kernel_train_mode)
+                            kernel_train_mode=kernel_train_mode,
+                            bn_group=bn_group)
     ls = _distill_losses(cfg, out_t, out_s, labels, label_loss_fn)
-    g_t, g_s = param_grads(ls["teacher_final_loss"] + ls["total_student_loss"],
-                           state.teacher, state.student)
+    total = ls["teacher_final_loss"] + ls["total_student_loss"]
+    if group is not None:
+        # the batch-mean terms (CE, L_REP) and the l2 term / n, so that the
+        # ranks' summed gradients are the global batch's; the batch-SUM
+        # L_PRED stays unscaled
+        total = (total - ls["pred_loss"]) / dist.get_world_size(group) + ls["pred_loss"]
+    g_t, g_s = param_grads(total, state.teacher, state.student)
     ls = {name: value.detach() for name, value in ls.items()}
     return (ls, out_t["predictions"].detach(), g_t, g_s,
             (out_t.get("updated_stats"), out_s.get("updated_stats")))
@@ -334,23 +357,49 @@ def _schedule(cfg: TrainConfig):
                              cfg.learning_rate_decay)
 
 
+def reduce_distill_losses(ls: Tensors, group) -> Tensors:
+    """The eight distill scalars of the global batch from the ranks':
+    averaged, except the batch-sum L_PRED, which is summed (and enters
+    the total student loss summed), in one all-reduce."""
+    ls = dict(ls, total_student_loss=ls["total_student_loss"] - ls["pred_loss"])
+    out = reduce_scalars(ls, group, summed=("pred_loss",))
+    out["total_student_loss"] = out["total_student_loss"] + out["pred_loss"]
+    return out
+
+
 def build_distill_train_step(cfg: TrainConfig, optimizer: Optimizer,
                              top_k: int = 20,
-                             kernel_train_mode: Optional[str] = None):
+                             kernel_train_mode: Optional[str] = None,
+                             group=None):
     """Returns step(state, features_u8, labels, num_frames) -> (state,
     metrics): `distill_loss_and_grads`, then one optimizer update per
     tower (gradients clipped per variable), both at the learning rate of
     the same pre-update global step, which then advances by 2 in faithful
     mode, else 1. The metrics are the loss scalars, the learning rate,
     the new global step, and the teacher's top-k and exact PERR (the
-    reference's per-step log covers the teacher only)."""
+    reference's per-step log covers the teacher only).
+
+    With a process `group`, the step is one rank's part of a
+    data-parallel step (the JAX step with `axis_name`): the batch-mean
+    loss terms and the l2 term are scaled by 1/n, the batch-sum L_PRED is
+    not, one bucketed all-reduce sums the gradients, and the clipped
+    TF-Adam update then runs identically on every rank. The reported
+    scalars are averaged over the ranks (L_PRED summed), and DBoF's
+    moving statistics averaged (its batch moments too, inside the
+    forward, with `cfg.sync_batch_norm`). The top-k and PERR are this
+    rank's rows."""
     schedule = _schedule(cfg)
     step_increment = 2 if cfg.faithful_quirks else 1
     resolve_label_loss(cfg)  # a missing counts file fails here, not mid-run
 
     def step(state: DistillState, features_u8, labels, num_frames):
         ls, preds_t, g_t, g_s, (upd_t, upd_s) = _distill(
-            cfg, state, features_u8, labels, num_frames, kernel_train_mode)
+            cfg, state, features_u8, labels, num_frames, kernel_train_mode,
+            group)
+        if group is not None:
+            all_reduce_grads([g_t, g_s], group)
+            ls = reduce_distill_losses(ls, group)
+            upd_t, upd_s = mean_tensors(upd_t, group), mean_tensors(upd_s, group)
         lr = schedule(state.global_step)
         optimizer.update(g_t, state.opt_teacher, params_of(state.teacher), lr)
         optimizer.update(g_s, state.opt_student, params_of(state.student), lr)
@@ -375,7 +424,8 @@ def build_distill_train_step(cfg: TrainConfig, optimizer: Optimizer,
 def build_finetune_step(cfg: TrainConfig, optimizer: Optimizer,
                         top_k: int = 20, host_subsampled: bool = False,
                         aggregated: bool = False,
-                        kernel_train_mode: Optional[str] = None):
+                        kernel_train_mode: Optional[str] = None,
+                        group=None):
     """Student-only training: CE + reg (train_finetune.py:263-331).
     Returns step(state, features_u8, labels, num_frames) -> (state,
     metrics); the global step advances by 1. The dropout key (and DBoF's
@@ -389,12 +439,17 @@ def build_finetune_step(cfg: TrainConfig, optimizer: Optimizer,
     `aggregated`: the `--frame_features=False` branch: [B, D] float32
     features of pre-aggregated Examples into a video-level model
     (`forward_video_level`); `num_frames` is the reader's all-ones
-    placeholder and is ignored."""
+    placeholder and is ignored.
+
+    With a process `group`, one rank's part of a data-parallel step, as
+    in `build_distill_train_step`: both loss terms are scaled by 1/n and
+    the gradients summed over the ranks."""
     schedule = _schedule(cfg)
     label_loss_fn = resolve_label_loss(cfg)
+    bn_group = group if cfg.sync_batch_norm else None
 
     def step(state: StudentState, features_u8, labels, num_frames):
-        rng = step_rng(cfg, state.global_step)
+        rng = step_rng(cfg, state.global_step, group)
         if aggregated:
             out_s = forward_video_level(
                 cfg, state.student, preprocess_aggregated(features_u8), labels,
@@ -407,20 +462,29 @@ def build_finetune_step(cfg: TrainConfig, optimizer: Optimizer,
             model_input_s = preprocess_batch(cfg, sub, nf_student)
             out_s = forward_student(cfg, state.student, model_input_s, nf_student,
                                     labels, dropout_keep_prob=state.dropout_keep_prob,
-                                    rng=rng, kernel_train_mode=kernel_train_mode)
+                                    rng=rng, kernel_train_mode=kernel_train_mode,
+                                    bn_group=bn_group)
         label_loss = model_label_loss(out_s, labels, label_loss_fn)
         reg = out_s["regularization_loss"]
-        (g_s,) = param_grads(cfg.regularization_penalty * reg + label_loss,
-                             state.student)
+        total = cfg.regularization_penalty * reg + label_loss
+        if group is not None:
+            total = total / dist.get_world_size(group)
+        (g_s,) = param_grads(total, state.student)
+        scalars = {"student_label_loss": label_loss.detach(),
+                   "student_reg_loss": reg.detach()}
+        updated = out_s.get("updated_stats")
+        if group is not None:
+            all_reduce_grads([g_s], group)
+            scalars = reduce_scalars(scalars, group)
+            updated = mean_tensors(updated, group)
         lr = schedule(state.global_step)
         optimizer.update(g_s, state.opt_student, params_of(state.student), lr)
-        _merge_updated_stats(state.student, out_s.get("updated_stats"))
+        _merge_updated_stats(state.student, updated)
         state.global_step += 1
         preds = out_s["predictions"].detach()
         topk_val, topk_idx, perr = topk_and_perr_on_device(preds, labels, top_k)
         metrics = {
-            "student_label_loss": label_loss.detach(),
-            "student_reg_loss": reg.detach(),
+            **scalars,
             "learning_rate": lr,
             "global_step": state.global_step,
             "topk_val": topk_val,

@@ -1,2 +1,2 @@
-"""Utilities: the config (utils/config.py) and the TensorBoard summaries
-(utils/summary.py)."""
+"""Utilities: the config (utils/config.py), the TensorBoard summaries
+(utils/summary.py) and the profiler (utils/profiling.py)."""

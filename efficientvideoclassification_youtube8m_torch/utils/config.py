@@ -96,8 +96,9 @@ class TrainConfig:
     # throughput under skewed shard sizes; arrival order then depends
     # on thread timing, like the reference's shuffle_batch_join).
     deterministic_input: bool = False
-    # synced (cross-shard) batch-norm moments for data-parallel DBoF
-    # training; comes with the parallel port
+    # synced (cross-rank) batch-norm moments for data-parallel DBoF
+    # training: one all-reduce per BN layer inside the forward makes the
+    # gradients those of the global batch's statistics
     sync_batch_norm: bool = False
     # in-flight dispatch depth of the eval loops' lag-N fetch ring:
     # results are pulled N batches behind dispatch so N launches' worth

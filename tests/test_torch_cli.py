@@ -4,9 +4,11 @@ the CPU; and the same pipeline crossing between the packages: both
 trainers from one JAX step-0 checkpoint, and each package's checkpoints
 evaluated by the other's cli.eval."""
 
+import datetime
 import glob
 import importlib
 import os
+import socket
 
 import numpy as np
 import pytest
@@ -279,32 +281,58 @@ def test_06_predictor_from_checkpoint(dirs):
                                   device="cpu")
 
 
-PARALLEL = "ROADMAP Queue 1, parallel and orbax"
+TENSOR_PARALLEL = "ROADMAP Queue 1, the tensor-parallel MoE head"
+ORBAX = "ROADMAP Queue 1, orbax checkpoints"
 HOST_PATHS = "ROADMAP Queue 1, the host paths of the binaries"
 
 
 @pytest.mark.parametrize("binary,extra,match", [
-    (train, ["--use_shardmap_train", "true"], PARALLEL),
-    (train, ["--model_parallelism", "2"], PARALLEL),
-    (train, ["--checkpoint_format", "orbax"], PARALLEL),
+    (train, ["--use_shardmap_train", "true"], None),
+    (train, ["--model_parallelism", "2"], TENSOR_PARALLEL),
+    (train, ["--checkpoint_format", "orbax"], ORBAX),
     (eval_cli, ["--steps_per_dispatch", "3"], HOST_PATHS),
     (validate, ["--steps_per_dispatch", "3"], HOST_PATHS),
 ])
-def test_07_unported_options_raise(dirs, binary, extra, match):
+def test_07_unported_options_raise(dirs, tmp_path, binary, extra, match):
+    """The options the port does not cover raise, naming their ROADMAP
+    item. `--use_shardmap_train` (match None) is covered now: it names
+    the data-parallel step every run takes, so a run with it is the run
+    without it, bit for bit."""
+    argv = TINY_FLAGS + ["--train_data_pattern", dirs["train_pattern"],
+                         "--eval_data_pattern", dirs["eval_pattern"],
+                         "--run_once", "true"]
+    if match is None:
+        runs = [binary.main(argv + extra + ["--train_dir", str(tmp_path / "flag")]),
+                binary.main(argv + ["--train_dir", str(tmp_path / "plain")])]
+        got, want = (_leaves(latest_checkpoint(str(tmp_path / d))) for d in ("flag", "plain"))
+        assert runs[0].global_step == runs[1].global_step > 0
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        binary.main(TINY_FLAGS + ["--train_dir", dirs["train_dir"],
-                                  "--train_data_pattern", dirs["train_pattern"],
-                                  "--eval_data_pattern", dirs["eval_pattern"],
-                                  "--run_once", "true"] + extra)
+        binary.main(argv + ["--train_dir", dirs["train_dir"]] + extra)
 
 
-@pytest.mark.parametrize("name,match", [
-    ("export_tf", "ROADMAP Queue 1, checkpoint interop")])
-def test_07b_unported_binaries_raise(name, match):
+@pytest.mark.parametrize("name,match", [("export_tf", "model.ckpt-18")])
+def test_07b_unported_binaries_raise(dirs, tmp_path, name, match):
+    """The binaries that were stubs run now: cli.export_tf writes the
+    trained distill checkpoint as a TF-V2 bundle named by its step, which
+    restores to the checkpoint's parameters
+    (tests/test_torch_tf_checkpoint.py holds it against the JAX binary)."""
     binary = importlib.import_module(
         f"efficientvideoclassification_youtube8m_torch.cli.{name}")
-    with pytest.raises(NotImplementedError, match=f"cli.{name} .*{match}"):
-        binary.main(["--train_dir", "unused"])
+    out = binary.main(TINY_FLAGS + ["--train_dir", dirs["train_dir"], "--output_prefix",
+                                    str(tmp_path / "tf_export" / "model.ckpt")])
+    assert out.endswith(match) and os.path.exists(out + ".index")
+    cfg = flags.config_from_args(flags.base_parser("").parse_args(TINY_FLAGS))
+    state = StudentState(student=init_model(cfg), opt_student={}, global_step=0,
+                         dropout_keep_prob=1.0)
+    restore_checkpoint(out, state)
+    want = _leaves(latest_checkpoint(dirs["train_dir"]))
+    for name_, value in state.student.state_dict().items():
+        np.testing.assert_array_equal(
+            value.numpy(), want["params_student/" + name_.replace(".", "/")], err_msg=name_)
+    assert state.global_step == 18
 
 
 @pytest.mark.parametrize("binary,extra,error,match", [
@@ -366,10 +394,17 @@ def test_08_flags_devices_and_clusters(dirs, tmp_path, monkeypatch):
                 flags.resolve_device(parser.parse_args(argv))
     with pytest.raises(ValueError):
         flags.resolve_device(parser.parse_args(["--device", "tpu"]))
-    monkeypatch.setenv("TF_CONFIG", '{"cluster": {"master": ["a:1"], '
-                       '"worker": ["b:1"]}, "task": {"type": "master"}}')
-    with pytest.raises(NotImplementedError, match=PARALLEL):
+    # a two-host TF_CONFIG whose worker never comes: the binary joins the
+    # group as its master, waits the (shortened) timeout and raises
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("TF_CONFIG", '{"cluster": {"master": ["localhost:%d"], '
+                       '"worker": ["localhost:1"]}, "task": {"type": "master"}}' % port)
+    monkeypatch.setattr(distributed, "DEFAULT_TIMEOUT", datetime.timedelta(seconds=2))
+    with pytest.raises(torch.distributed.DistError):
         train.main(TINY_FLAGS + ["--train_dir", str(tmp_path)])
+    assert not torch.distributed.is_initialized()
     monkeypatch.delenv("TF_CONFIG")
     with pytest.raises(IOError, match="no converted checkpoint"):
         finetune.main(TINY_FLAGS + ["--train_dir", str(tmp_path / "empty"),

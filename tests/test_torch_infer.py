@@ -239,7 +239,7 @@ def test_inspect_checkpoint_lists_the_same(dirs, tmp_path, capsys):
         jax_inspect.main(argv)
         assert port_out == capsys.readouterr().out
     (tmp_path / "orbax_dir").mkdir()
-    with pytest.raises(NotImplementedError, match="parallel and orbax"):
+    with pytest.raises(NotImplementedError, match="orbax checkpoints"):
         inspect_checkpoint.main(["--file_name", str(tmp_path / "orbax_dir")])
 
 

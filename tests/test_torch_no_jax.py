@@ -37,7 +37,9 @@ def test_port_imports_no_jax():
                  "metrics.mean_average_precision", "train.optimizer",
                  "train.state", "train.step", "train.msgpack_io",
                  "train.checkpoint", "utils.summary", "utils.config",
-                 "parallel.distributed", "data.loader", "data.native",
+                 "parallel.distributed", "parallel.mesh",
+                 "parallel.sharded_step", "train.tf_import", "train.tf_export",
+                 "utils.profiling", "cli.export_tf", "data.loader", "data.native",
                  "data.tf_checkpoint", "ensemble", "cli.flags", "cli.loop",
                  "cli.train", "cli.validate", "cli.convert", "cli.finetune",
                  "cli.eval", "cli.infer", "cli.inference_bias",

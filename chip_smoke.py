@@ -197,7 +197,11 @@ from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_scan_i
 from efficientvideoclassification_youtube8m_torch.ops.kernels import lstm_train
 from efficientvideoclassification_youtube8m_torch.models import frame_level
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
-from efficientvideoclassification_youtube8m_torch.parallel.mesh import BUCKET_BYTES, create_mesh
+from efficientvideoclassification_youtube8m_torch.ops.collectives import BUCKET_BYTES
+from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
+    create_mesh,
+    shard_state,
+)
 from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
     DISTILL_SCALARS,
     build_sharded_distill_step,
@@ -216,6 +220,7 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
     StudentState,
     init_distill_state,
     params_of,
+    state_tree,
     student_state_from_distill,
 )
 from efficientvideoclassification_youtube8m_torch.scripts import acceptance_run
@@ -419,43 +424,52 @@ def layer_case(T, B, H, D, gen):
     return xp, w_h.to(dev).bfloat16(), bias.to(dev), seq.to(dev)
 
 
+def check_scan_case(name, T, B, H, D, gen, tag: str = "2"):
+    """The forward-only kernel against its plain version on one layer's
+    inputs (`layer_case`): the masking, and the outputs and finals within
+    TOL_OUTS and TOL_FINALS. Returns (the inputs, the differences)."""
+    args = layer_case(T, B, H, D, gen)
+    outs, c, h = lstm_scan.lstm_chunk_scan(*args)
+    r_outs, r_c, r_h = lstm_scan.lstm_chunk_scan_reference(*args)
+    torch.cuda.synchronize()
+    seq = args[3]
+    past = torch.arange(T, device="cuda")[:, None] >= seq[None, :]
+    zeros_past_seq = bool((outs[past] == 0).all())
+    empty = seq == 0
+    zero_state = bool((c[empty] == 0).all() and (h[empty] == 0).all())
+    err = {
+        "outs": (outs.float() - r_outs.float()).abs().max().item(),
+        "c_fin": (c - r_c).abs().max().item(),
+        "h_fin": (h - r_h).abs().max().item(),
+    }
+    log(f"[{tag}] {name} T={T} B={B} H={H}: max|diff| outs {err['outs']:.3g} "
+        f"c_fin {err['c_fin']:.3g} h_fin {err['h_fin']:.3g}; "
+        f"zeros past seq {zeros_past_seq}, zero state at seq 0 {zero_state}")
+    if not (zeros_past_seq and zero_state):
+        raise AssertionError(f"{name}: masking is wrong")
+    if not all(map(math.isfinite, err.values())):
+        raise AssertionError(f"{name}: non-finite difference {err}")
+    if err["outs"] > TOL_OUTS or max(err["c_fin"], err["h_fin"]) > TOL_FINALS:
+        raise AssertionError(f"{name}: kernel and plain version disagree: {err}")
+    return args, err
+
+
 def phase_kernel():
     gen = torch.Generator().manual_seed(0)
     worst = 0.0
     times = {}
     for name, T, B, H, D in LAYER_SHAPES:
-        args = layer_case(T, B, H, D, gen)
-        outs, c, h = lstm_scan.lstm_chunk_scan(*args)
-        r_outs, r_c, r_h = lstm_scan.lstm_chunk_scan_reference(*args)
-        torch.cuda.synchronize()
-        seq = args[3]
-        past = torch.arange(T, device="cuda")[:, None] >= seq[None, :]
-        zeros_past_seq = bool((outs[past] == 0).all())
-        empty = seq == 0
-        zero_state = bool((c[empty] == 0).all() and (h[empty] == 0).all())
-        err = {
-            "outs": (outs.float() - r_outs.float()).abs().max().item(),
-            "c_fin": (c - r_c).abs().max().item(),
-            "h_fin": (h - r_h).abs().max().item(),
-        }
+        args, err = check_scan_case(name, T, B, H, D, gen)
         iters = 20 if B >= 256 else 5
         ms = cuda_ms(lambda: lstm_scan.lstm_chunk_scan(*args), iters)
         replay_ms = graph_ms(lambda: lstm_scan.lstm_chunk_scan(*args), iters)
         plain_ms = cuda_ms(lambda: lstm_scan.lstm_chunk_scan_reference(*args), iters)
         times[name] = (ms, replay_ms, plain_ms)
-        log(f"[2] {name} T={T} B={B} H={H}: max|diff| outs {err['outs']:.3g} "
-            f"c_fin {err['c_fin']:.3g} h_fin {err['h_fin']:.3g}; "
-            f"zeros past seq {zeros_past_seq}, zero state at seq 0 {zero_state}; "
-            f"kernel {ms:.4f} ms (graph replay {replay_ms:.4f}), plain {plain_ms:.4f} ms")
+        log(f"[2] {name}: kernel {ms:.4f} ms (graph replay {replay_ms:.4f}), "
+            f"plain {plain_ms:.4f} ms")
         if (name, T, B, H, D) in FLAGSHIP_SHAPES:
             log(f"[2] {name}: " + against_bound("lstm_chunk_scan", name, T, B, H, ms,
                                                 replay_ms))
-        if not (zeros_past_seq and zero_state):
-            raise AssertionError(f"{name}: masking is wrong")
-        if not all(map(math.isfinite, err.values())):
-            raise AssertionError(f"{name}: non-finite difference {err}")
-        if err["outs"] > TOL_OUTS or max(err["c_fin"], err["h_fin"]) > TOL_FINALS:
-            raise AssertionError(f"{name}: kernel and plain version disagree: {err}")
         worst = max(worst, *err.values())
     log(f"[2] tolerances: outs {TOL_OUTS}, finals {TOL_FINALS}")
     return worst, times
@@ -886,6 +900,38 @@ def kernels_per_call(fn) -> int:
                and any(k in evt.key for k in INT8_STEP_KERNELS))
 
 
+def check_int8_case(name, T, B, H, D, gen, tag: str = "7"):
+    """The int8 kernel against its plain version on one layer's inputs
+    (`int8_layer_case`): the masking, and the outputs and finals within
+    TOL_INT8_OUTS and TOL_INT8_FINALS. Returns (the inputs, the tile, the
+    differences)."""
+    args = int8_layer_case(T, B, H, D, gen)
+    tile = layout.int8_tile(B, layout.tma_width(H, 1))
+    r_outs, r_c, r_h = lstm_scan_int8.lstm_chunk_scan_int8_reference(*args)
+    seq = args[4]
+    past = torch.arange(T, device="cuda")[:, None] >= seq[None, :]
+    empty = seq == 0
+    outs, c, h = lstm_scan_int8.lstm_chunk_scan_int8(*args)
+    torch.cuda.synchronize()
+    zeros_past_seq = bool((outs[past] == 0).all())
+    zero_state = bool((c[empty] == 0).all() and (h[empty] == 0).all())
+    err = {
+        "outs": (outs.float() - r_outs.float()).abs().max().item(),
+        "c_fin": (c - r_c).abs().max().item(),
+        "h_fin": (h - r_h).abs().max().item(),
+    }
+    log(f"[{tag}] {name} T={T} B={B} H={H}, tile {tile[0]}x{tile[1]}: max|diff| outs "
+        f"{err['outs']:.3g} c_fin {err['c_fin']:.3g} h_fin {err['h_fin']:.3g}; zeros "
+        f"past seq {zeros_past_seq}, zero state at seq 0 {zero_state}")
+    if not (zeros_past_seq and zero_state):
+        raise AssertionError(f"{name}: int8 masking is wrong")
+    if not all(map(math.isfinite, err.values())):
+        raise AssertionError(f"{name}: non-finite difference {err}")
+    if err["outs"] > TOL_INT8_OUTS or max(err["c_fin"], err["h_fin"]) > TOL_INT8_FINALS:
+        raise AssertionError(f"{name}: int8 kernel and plain version disagree: {err}")
+    return args, tile, err
+
+
 def phase_int8_kernel():
     """The int8 kernel against its plain version at every layer shape; at
     the flagship shapes its times beside the bf16 scan's at the same
@@ -894,30 +940,8 @@ def phase_int8_kernel():
     worst = 0.0
     times = {}
     for name, T, B, H, D in LAYER_SHAPES:
-        args = int8_layer_case(T, B, H, D, gen)
-        tile = layout.int8_tile(B, layout.tma_width(H, 1))
-        r_outs, r_c, r_h = lstm_scan_int8.lstm_chunk_scan_int8_reference(*args)
+        args, tile, err = check_int8_case(name, T, B, H, D, gen)
         seq = args[4]
-        past = torch.arange(T, device="cuda")[:, None] >= seq[None, :]
-        empty = seq == 0
-        outs, c, h = lstm_scan_int8.lstm_chunk_scan_int8(*args)
-        torch.cuda.synchronize()
-        zeros_past_seq = bool((outs[past] == 0).all())
-        zero_state = bool((c[empty] == 0).all() and (h[empty] == 0).all())
-        err = {
-            "outs": (outs.float() - r_outs.float()).abs().max().item(),
-            "c_fin": (c - r_c).abs().max().item(),
-            "h_fin": (h - r_h).abs().max().item(),
-        }
-        log(f"[7] {name} T={T} B={B} H={H}, tile {tile[0]}x{tile[1]}: max|diff| outs "
-            f"{err['outs']:.3g} c_fin {err['c_fin']:.3g} h_fin {err['h_fin']:.3g}; zeros "
-            f"past seq {zeros_past_seq}, zero state at seq 0 {zero_state}")
-        if not (zeros_past_seq and zero_state):
-            raise AssertionError(f"{name}: int8 masking is wrong")
-        if not all(map(math.isfinite, err.values())):
-            raise AssertionError(f"{name}: non-finite difference {err}")
-        if err["outs"] > TOL_INT8_OUTS or max(err["c_fin"], err["h_fin"]) > TOL_INT8_FINALS:
-            raise AssertionError(f"{name}: int8 kernel and plain version disagree: {err}")
         per_call = kernels_per_call(lambda: lstm_scan_int8.lstm_chunk_scan_int8(*args))
         log(f"[7] {name}: one call launches {per_call} step and quantize kernels "
             f"(T={T}: 2T)")
@@ -1176,7 +1200,8 @@ COUNTERS = {
 
 
 class LogCapture(logging.Handler):
-    """The matches of `pattern` in the messages of one logger."""
+    """The matches of `pattern` in the messages of one logger, which logs
+    at INFO while it is captured."""
 
     def __init__(self, logger_name: str, pattern: re.Pattern):
         super().__init__()
@@ -1190,11 +1215,14 @@ class LogCapture(logging.Handler):
             self.matches.append(m.groups())
 
     def __enter__(self):
+        self.level_before = self.logger.level
+        self.logger.setLevel(logging.INFO)
         self.logger.addHandler(self)
         return self
 
     def __exit__(self, *exc):
         self.logger.removeHandler(self)
+        self.logger.setLevel(self.level_before)
 
 
 def run_binary(tag: str, main_fn, argv, expected, phase: str = "9"):
@@ -2650,6 +2678,358 @@ def phase_trace(trace_path: str) -> None:
     shutil.rmtree(os.path.dirname(trace_path))
 
 
+# ------------------------------ phase 15: serving and training over a mesh
+#
+# Gloo ranks share the one card, spawned as 14b's are (`python3
+# chip_smoke.py --mesh-worker GROUP RANK WORLD PORT ROOT`): NCCL refuses
+# two ranks on one device, so nothing here is a speed of tensor or
+# sequence parallelism, only its correctness at the flagship's widths.
+# Each rank holds its path against one process on the same card: 15a the
+# data- and sequence-parallel Predictors against the one-process Predictor
+# on the same request (TOL_PREDICTIONS); 15b one SGD distill step on a
+# (data 1, model 2) mesh with the default min_dim, so that the MoE head
+# is sharded and the LSTMs run in the train kernels on every rank, and a
+# (2, 2) mesh at 14b's reduced width, against the one-process step from
+# the same init (14b's bars on the recovered gradients and the losses);
+# then cli.train --model_parallelism 2 for 2 SGD steps over 9b's shards,
+# held against one process's cli.train on the same rows (the same bars,
+# the logged losses beside their 2-decimal rounding), and its checkpoint
+# through cli.eval under model 2 and model 1.
+MESH_GROUPS = {"pair": 2, "quad": 4, "five": 5}
+# the new shapes of the forward kernel on these paths: the teacher's L1
+# split over 2 and 4 ranks (10 and 5 of its 20 chunks), the student's L1
+# over 5 (one chunk of 6 frames), and the 128-row halves of data-parallel
+# serving (L2 at 256 rows is phase 2's)
+MESH_SHAPES = [
+    ("sp_teacher_L1_2", 15, 2560, 1024, 1152),
+    ("sp_teacher_L1_4", 15, 1280, 1024, 1152),
+    ("sp_student_L1_5", 6, 256, 1024, 1152),
+    ("dp_student_L1", 6, 640, 1024, 1152),
+    ("dp_student_L2", 5, 128, 1024, 4096),
+]
+# the int8 kernel's shapes on data-parallel int8 serving: the same halves
+MESH_INT8_SHAPES = [
+    ("dp_int8_student_L1", 6, 640, 1024, 1152),
+    ("dp_int8_student_L2", 5, 128, 1024, 4096),
+]
+# cli.train at model 2 and in one process: 2 SGD steps (the parameter
+# change is the gradient) over 9b's shards in one order
+TP_TRAIN_FLAGS = ["--num_epochs", "1", "--start_new_model", "true",
+                  "--deterministic_input", "true", "--optimizer", "GradientDescentOptimizer"]
+# the train log prints each loss rounded to 2 decimals
+LOG_ROUNDING = 1e-2
+# cli.eval of one checkpoint under model 2 and model 1: the rank metrics
+# (Hit@1, PERR, GAP) within 1e-3, the loss within 1e-5 relative
+TOL_TP_EPOCH = 1e-3
+TP_CFG = dict(compute_dtype="bfloat16", optimizer="GradientDescentOptimizer")
+
+
+def counted(fn):
+    """(fn(), the kernel launches it made), the counts set to 0 before."""
+    for f in COUNTERS.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in COUNTERS.items()}
+
+
+def mesh_serve(cfg, mesh, cases) -> dict:
+    """Each (tag, tower, kwargs) of `cases`: the Predictor over `mesh`
+    against the one-process Predictor on the same 256-video request."""
+    models = {"student": init_model(cfg, prng.prng_key(4), device="cuda").eval(),
+              "teacher": init_model(cfg, prng.prng_key(5), device="cuda").eval()}
+    feats, nf = next(requests([SERVE_BATCH], cfg, seed=41))
+    out = {}
+    for tag, tower, kw in cases:
+        quant = {"quantize": kw["quantize"]} if "quantize" in kw else {}
+        want = Predictor(cfg, models[tower], tower, SERVE_BATCH, device="cuda",
+                         **quant).predict(feats, nf)
+        t0 = time.perf_counter()
+        got, launches = counted(lambda: Predictor(
+            cfg, models[tower], tower, SERVE_BATCH, device="cuda", mesh=mesh,
+            **kw).predict(feats, nf))
+        out[tag] = {"err": float(np.abs(got - want).max()), "shape": list(got.shape),
+                    "finite": bool(np.isfinite(got).all()), "launches": launches,
+                    "s": time.perf_counter() - t0}
+    return out
+
+
+def recovered_grads(cfg, state, before) -> dict:
+    """An SGD step's gradients, (before - after) / lr, whole."""
+    after = flat_leaves(state_tree(state))
+    return {k: (v - after[k]) / cfg.base_learning_rate for k, v in before.items()
+            if "/moving_" not in k}
+
+
+def tp_step(cfg, mesh, batch) -> dict:
+    """One SGD distill step of `cfg` from the seed-0 init on `mesh` (its
+    data index's rows of `batch`), held on rank 0 against one process on
+    the whole batch: the loss scalars within TOL_LOSS_REL + TOL_LOSS_ABS,
+    each recovered gradient within TOL_GRAD_REL of its max (floored at
+    1e-3 of the step's largest, as in 14b)."""
+    opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
+    n = batch[0].shape[0] // mesh.data
+    rows = tuple(t[mesh.data_index * n:(mesh.data_index + 1) * n] for t in batch)
+    state = shard_state(init_distill_state(cfg, opt, prng.prng_key(0), device="cuda"), mesh)
+    before = {k: v.clone() for k, v in flat_leaves(state_tree(state)).items()
+              if k.startswith("params_")}
+    t0 = time.perf_counter()
+    (state, metrics), launches = counted(
+        lambda: build_sharded_distill_step(cfg, opt, mesh)(state, *rows))
+    seconds = time.perf_counter() - t0
+    grads = recovered_grads(cfg, state, before)
+    out = {"launches": launches, "s": seconds,
+           "losses": {k: metrics[k].item() for k in DISTILL_SCALARS},
+           "sharded": sorted(state.teacher.model_shards.names)}
+    del state, before
+    if mesh.rank == 0:
+        one = init_distill_state(cfg, opt, prng.prng_key(0), device="cuda")
+        before = {k: v.clone() for k, v in flat_leaves(state_tree(one)).items()
+                  if k.startswith("params_")}
+        one, want_metrics = build_distill_train_step(cfg, opt)(one, *batch)
+        want = recovered_grads(cfg, one, before)
+        floor = 1e-3 * max(v.abs().max().item() for v in want.values())
+        errs = {k: (grads[k] - v).abs().max().item() / max(v.abs().max().item(), floor)
+                for k, v in want.items()}
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        out.update(grad_worst=list(worst), tensors=len(errs),
+                   want_losses={k: want_metrics[k].item() for k in DISTILL_SCALARS})
+    return out
+
+
+def tp_train_argv(root: str, train_dir: str) -> list:
+    return TP_TRAIN_FLAGS + ["--train_dir", train_dir, "--train_data_pattern",
+                             os.path.join(root, "scale", "train*.tfrecord")]
+
+
+def tp_binaries(root: str) -> dict:
+    """cli.train --model_parallelism 2 for 2 steps over 9b's shards (its
+    logged losses), and its checkpoint through cli.eval under model 2 and
+    model 1."""
+    data_dir = os.path.join(root, "scale")
+    train_dir = os.path.join(root, "tp_train") + "/"
+    out = {}
+    t0 = time.perf_counter()
+    with LogCapture("train", STEP_RE) as steps:
+        state, out["train_launches"] = counted(lambda: train_cli.main(
+            tp_train_argv(root, train_dir) + ["--model_parallelism", "2"]))
+    out["train_s"] = time.perf_counter() - t0
+    out["steps"] = steps.matches
+    out["global_step"] = state.global_step
+    out["sharded"] = sorted(state.teacher.model_shards.names)
+    del state
+    for model in ("2", "1"):
+        t0 = time.perf_counter()
+        epoch, out[f"eval{model}_launches"] = counted(lambda: eval_cli.main([
+            "--train_dir", train_dir, "--run_once", "true", "--model_parallelism", model,
+            "--eval_data_pattern", os.path.join(data_dir, "validate*.tfrecord")]))
+        out[f"eval{model}_s"] = time.perf_counter() - t0
+        out[f"eval{model}"] = {k: float(epoch[k]) for k in
+                               ("avg_hit_at_one", "avg_perr", "gap", "avg_loss")}
+    return out
+
+
+def mesh_worker(group: str, rank: int, world: int, port: int, root: str) -> None:
+    """One rank of phase 15 (`python3 chip_smoke.py --mesh-worker GROUP
+    RANK WORLD PORT ROOT`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logging.basicConfig(level=logging.WARNING)
+    distributed.initialize(f"localhost:{port}", world, rank, device=torch.device("cuda", 0),
+                           backend="gloo", timeout=datetime.timedelta(seconds=300))
+    cfg = TrainConfig(compute_dtype="bfloat16")
+    out = {}
+    if group == "pair":
+        out["serve"] = mesh_serve(cfg, create_mesh(device="cuda"), [
+            ("dp_bf16_2", "student", {}),
+            ("dp_int8_2", "student", {"quantize": "int8"}),
+            ("sp_teacher_2", "teacher", {"sequence_parallel": True})])
+        tp_cfg = TrainConfig(**TP_CFG)
+        out["tp_1x2"] = tp_step(tp_cfg, create_mesh(model=2, device="cuda"),
+                                distill_batch(tp_cfg, tp_cfg.batch_size, seed=51))
+        out["cli"] = tp_binaries(root)
+    elif group == "quad":
+        out["serve"] = mesh_serve(cfg, create_mesh(device="cuda"), [
+            ("sp_teacher_4", "teacher", {"sequence_parallel": True})])
+        small = TrainConfig(**DP_CFG)
+        out["tp_2x2"] = tp_step(small, create_mesh(model=2, device="cuda"),
+                                distill_batch(small, small.batch_size, seed=52))
+    else:
+        out["serve"] = mesh_serve(cfg, create_mesh(device="cuda"), [
+            ("sp_student_5", "student", {"sequence_parallel": True})])
+    with open(os.path.join(root, "mesh", f"{group}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.shutdown()
+    print(f"MESH_WORKER_OK {group} {rank}", flush=True)
+
+
+def run_group(group: str, root: str) -> list:
+    """Spawn the ranks of one phase-15 group; their results."""
+    world, port = MESH_GROUPS[group], free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-worker", group, str(rank),
+         str(world), str(port), root], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(world)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=600)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.wait()
+            raise AssertionError(f"15 a rank of {group} timed out")
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"MESH_WORKER_OK {group} {rank}" not in text:
+            raise AssertionError(f"15 {group} rank {rank} failed:\n{text[-4000:]}")
+    results = []
+    for rank in range(world):
+        with open(os.path.join(root, "mesh", f"{group}_rank{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def check_tp_step(tag: str, ranks: list) -> dict:
+    """15b's bars on a `tp_step` result, rank 0 holding the comparison;
+    every rank reports the same losses."""
+    got = ranks[0]
+    losses = got["losses"]
+    if any(r["losses"] != losses for r in ranks):
+        raise AssertionError(f"15b {tag}: the ranks report different losses")
+    bad = [k for k, v in got["want_losses"].items()
+           if abs(losses[k] - v) > TOL_LOSS_REL * abs(v) + TOL_LOSS_ABS]
+    name, worst = got["grad_worst"]
+    log(f"[15] 15b {tag}: {got['s']:.2f} s for the step; losses (mesh / one process) "
+        + "; ".join(f"{k} {losses[k]:.6g} / {v:.6g}" for k, v in got["want_losses"].items())
+        + f"; recovered gradients over {got['tensors']} tensors, worst {name} {worst:.3g} "
+        f"of its max; sharded leaves {got['sharded']}; launches {got['launches']} "
+        f"(bars: losses {TOL_LOSS_REL} + {TOL_LOSS_ABS}, gradients {TOL_GRAD_REL})")
+    if bad or worst > TOL_GRAD_REL or not got["sharded"]:
+        raise AssertionError(f"15b {tag}: the mesh step misses the bars ({bad}, {worst})")
+    if got["launches"]["lstm_train_fwd"] != 8 or got["launches"]["lstm_train_bwd"] != 8:
+        raise AssertionError(f"15b {tag}: train kernel launches {got['launches']}")
+    return got["launches"]
+
+
+def logged_losses(steps) -> dict:
+    """{step: (Teacher_Loss, L_REP, L_PRED, L_CE)} of STEP_RE's matches."""
+    return {int(m[0]): tuple(map(float, m[1:])) for m in steps}
+
+
+def check_tp_train(root: str, cli: dict) -> dict:
+    """15b: one process's cli.train on the same rows as the model-2 run:
+    its logged losses within TOL_LOSS_REL + TOL_LOSS_ABS + LOG_ROUNDING,
+    and each tensor's change from the init (2 SGD steps: the learning
+    rate times the gradients' sum) within TOL_GRAD_REL of its max,
+    floored at 1e-3 of the largest, as `tp_step` holds one step."""
+    one_dir = os.path.join(root, "tp_one") + "/"
+    argv = tp_train_argv(root, one_dir)
+    with LogCapture("train", STEP_RE) as steps:
+        _, seconds, counts = run_binary("15b cli.train, one process", train_cli.main, argv,
+                                        cli["train_launches"], phase="15")
+    want, got = logged_losses(steps.matches), logged_losses(cli["steps"])
+    if not want or sorted(want) != sorted(got):
+        raise AssertionError(f"15b logged steps: one process {sorted(want)}, "
+                             f"model 2 {sorted(got)}")
+    loss_bad = [(s, g, w) for s in want for g, w in zip(got[s], want[s])
+                if abs(g - w) > TOL_LOSS_REL * abs(w) + TOL_LOSS_ABS + LOG_ROUNDING]
+    cfg = flags.config_from_args(flags.base_parser("").parse_args(argv))
+    init = init_distill_state(cfg, make_optimizer(cfg.optimizer, cfg.clip_gradient_norm),
+                              device="cuda")  # cli.train's init
+    init = {k: v.detach().cpu().numpy() for k, v in flat_leaves(state_tree(init)).items()
+            if k.startswith("params_")}
+    one = flat_leaves(msgpack_io.load(checkpoint.latest_checkpoint(one_dir)))
+    tp = flat_leaves(msgpack_io.load(checkpoint.latest_checkpoint(
+        os.path.join(root, "tp_train"))))
+    change = {k: v - one[k] for k, v in init.items() if "/moving_" not in k}
+    floor = 1e-3 * max(np.abs(v).max() for v in change.values())
+    errs = {k: np.abs((init[k] - tp[k]) - v).max() / max(np.abs(v).max(), floor)
+            for k, v in change.items()}
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    log(f"[15] 15b cli.train --model_parallelism 2 against one process on the same rows "
+        f"(one process {seconds:.2f} s, launches {counts}): logged losses (model 2 / one "
+        f"process) " + "; ".join(f"step {s} {got[s]} / {want[s]}" for s in sorted(want))
+        + f"; parameter change over {len(errs)} tensors, worst {worst[0]} {worst[1]:.3g} "
+        f"of its max (bars: losses {TOL_LOSS_REL} + {TOL_LOSS_ABS} + the log's rounding "
+        f"{LOG_ROUNDING}, change {TOL_GRAD_REL})")
+    if loss_bad or worst[1] > TOL_GRAD_REL:
+        raise AssertionError(f"15b cli.train at model 2 misses the bars: {loss_bad}, {worst}")
+    shutil.rmtree(one_dir, ignore_errors=True)
+    return {"worst": worst, "losses": got}
+
+
+def phase_mesh(root: str, smi: str) -> dict:
+    """Phase 15: 15a serving over a mesh, 15b tensor parallelism."""
+    gen = torch.Generator().manual_seed(15)
+    worst_kernel = 0.0
+    for name, T, B, H, D in MESH_SHAPES:
+        _, err = check_scan_case(name, T, B, H, D, gen, tag="15")
+        worst_kernel = max(worst_kernel, *err.values())
+    gen8 = torch.Generator(device="cuda").manual_seed(15)
+    worst_int8 = 0.0
+    for name, T, B, H, D in MESH_INT8_SHAPES:
+        _, _, err = check_int8_case(name, T, B, H, D, gen8, tag="15")
+        worst_int8 = max(worst_int8, *err.values())
+    os.makedirs(os.path.join(root, "mesh"))
+    launches = {}
+    t0 = time.perf_counter()
+    groups, seconds = {}, {}
+    for g in ("five", "quad", "pair"):
+        t1 = time.perf_counter()
+        groups[g] = run_group(g, root)
+        seconds[g] = time.perf_counter() - t1
+    wall = time.perf_counter() - t0
+    log(f"[15] group wall seconds, spawn to the last rank's exit: " + ", ".join(
+        f"{g} ({MESH_GROUPS[g]} ranks) {s:.1f}" for g, s in seconds.items()))
+    for group, ranks in groups.items():
+        for tag in ranks[0]["serve"]:
+            cases = [r["serve"][tag] for r in ranks]
+            err = max(c["err"] for c in cases)
+            kernel = "lstm_chunk_scan_int8" if "int8" in tag else "lstm_chunk_scan"
+            counts = cases[0]["launches"]
+            launches[tag] = counts
+            log(f"[15] 15a {tag} ({len(ranks)} ranks): every rank's [256, 4716] within "
+                f"{err:.3g} of the one-process Predictor (bar {TOL_PREDICTIONS}); "
+                f"{cases[0]['s']:.2f} s; launches a rank {counts}")
+            if (err > TOL_PREDICTIONS or not all(c["finite"] for c in cases)
+                    or any(c["shape"] != [SERVE_BATCH, 4716] for c in cases)):
+                raise AssertionError(f"15a {tag}: {cases}")
+            if counts[kernel] != 4 or sum(counts.values()) != 4:
+                raise AssertionError(f"15a {tag}: kernel launches {counts}")
+    launches["tp_1x2"] = check_tp_step("(data 1, model 2) at flagship width, batch 256",
+                                       [r["tp_1x2"] for r in groups["pair"]])
+    launches["tp_2x2"] = check_tp_step("(2, 2) at lstm_cells 256, batch 64",
+                                       [r["tp_2x2"] for r in groups["quad"]])
+    cli = groups["pair"][0]["cli"]
+    check_tp_train(root, cli)
+    evals = (cli["eval2"], cli["eval1"])
+    diff = max(abs(evals[0][k] - evals[1][k]) for k in EPOCH_KEYS)
+    loss_rel = abs(evals[0]["avg_loss"] - evals[1]["avg_loss"]) / abs(evals[1]["avg_loss"])
+    log(f"[15] 15b cli.train --model_parallelism 2: {cli['global_step']} global steps in "
+        f"{cli['train_s']:.2f} s, launches {cli['train_launches']}, sharded "
+        f"{cli['sharded']}; cli.eval of its checkpoint under model 2 {evals[0]} "
+        f"({cli['eval2_s']:.2f} s, launches {cli['eval2_launches']}) and model 1 "
+        f"{evals[1]} ({cli['eval1_s']:.2f} s, launches {cli['eval1_launches']}): "
+        f"max|diff| {diff:.3g} on {', '.join(EPOCH_KEYS)} (bar {TOL_TP_EPOCH}), "
+        f"avg_loss {loss_rel:.3g} relative (bar 1e-5)")
+    if (cli["global_step"] != 4 or diff > TOL_TP_EPOCH or loss_rel > 1e-5
+            or cli["train_launches"]["lstm_train_fwd"] != 16):
+        raise AssertionError(f"15b the binaries at model 2: {cli}")
+    if min(cli["eval2_launches"]["lstm_chunk_scan"], cli["eval1_launches"]["lstm_chunk_scan"]) < 1:
+        raise AssertionError("15b cli.eval ran no forward kernel")
+    launches.update(tp_cli_train=cli["train_launches"], tp_cli_eval2=cli["eval2_launches"],
+                    tp_cli_eval1=cli["eval1_launches"])
+    shutil.rmtree(os.path.join(root, "tp_train"), ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "mesh"), ignore_errors=True)
+    log(f"[15] forward kernel at the mesh paths' new shapes: worst |diff| {worst_kernel:.3g} "
+        f"(bars: outs {TOL_OUTS}, finals {TOL_FINALS}); int8 kernel at data-parallel int8 "
+        f"serving's: worst |diff| {worst_int8:.3g} (bars: outs {TOL_INT8_OUTS}, finals "
+        f"{TOL_INT8_FINALS}); {wall:.1f} s for the three gloo "
+        f"groups of 5, 4 and 2 ranks on one card; correctness only, no speed of tensor or "
+        f"sequence parallelism ({smi})")
+    return launches
+
+
 def jax_package_files():
     """The files under the JAX package's directory (beside this script),
     or None where there is none."""
@@ -2691,6 +3071,9 @@ def main() -> None:
         two_ranks = phase_two_ranks(root, smi)
         phase_trace(trace_path)
         log(f"[14] phase 14 wall {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mesh_launches = phase_mesh(root, smi)
+        log(f"[15] phase 15 wall {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(TRACE_DIR, ignore_errors=True)
@@ -2700,8 +3083,8 @@ def main() -> None:
         raise AssertionError(f"the port imported {loaded}")
     if jax_package_files() != jax_files:
         raise AssertionError("the run wrote into the JAX package's directory")
-    log("[14] no module of jax, flax, msgpack or the JAX package loaded; nothing "
-        "written into the JAX package's directory (phases 1-14)")
+    log("[15] no module of jax, flax, msgpack or the JAX package loaded; nothing "
+        "written into the JAX package's directory (phases 1-15)")
     # The line's times are at student_L1 (T=6, B=1280, H=1024), the
     # student's first layer at batch 256. "ms" and "plain_ms" are eager
     # calls, "graph_ms" the kernel's graph replay. library_ms is cuDNN's
@@ -2739,6 +3122,9 @@ def main() -> None:
             # a 300-video request to each Predictor over 13a's bundle
             kernels[-1]["interop_predict_launches"] = interop["launches"][
                 "student none" if name == "lstm_chunk_scan" else "student int8"]
+        # phase 15's paths: a rank's launches, each path counted alone
+        kernels[-1]["mesh_launches"] = {path: counts[name] for path, counts
+                                        in mesh_launches.items() if counts[name]}
     log(f"[13] interop: export {interop['export_gib_s']:.2f} GiB/s, import "
         f"{interop['import_gib_s']:.2f} GiB/s of a {interop['bundle_bytes']} B bundle; "
         f"chunked msgpack {chunked['bytes']} B, save {chunked['save_gib_s']:.2f} GiB/s, "
@@ -2756,5 +3142,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]),
+                    sys.argv[6])
     else:
         main()

@@ -31,16 +31,20 @@ from efficientvideoclassification_youtube8m_torch.ops.quantize import (
     quantize_hierarchical_params,
 )
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
+from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
+    create_mesh,
+    shard_state,
+)
+from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
+    build_sharded_eval_step,
+    build_sharded_quantized_eval_step,
+)
 from efficientvideoclassification_youtube8m_torch.train.checkpoint import (
     restore_subtree,
 )
 from efficientvideoclassification_youtube8m_torch.train.state import (
     StudentState,
     init_model,
-)
-from efficientvideoclassification_youtube8m_torch.train.step import (
-    build_eval_step,
-    build_quantized_eval_step,
 )
 from efficientvideoclassification_youtube8m_torch.utils import summary as summary_lib
 
@@ -57,19 +61,21 @@ def evaluate(args):
     flags_lib.resolve_steps_per_dispatch(args, logger=logger)
     device = flags_lib.resolve_device(args)
     distributed.initialize(device=device)
-    host = distributed.host_context(cfg.batch_size)
+    host = distributed.host_context(cfg.batch_size, args.model_parallelism)
     # parameters only: the optimizer slots are neither allocated nor read
     state = StudentState(student=init_model(cfg, device=device), opt_student={},
                          global_step=0, dropout_keep_prob=cfg.dropout)
+    mesh = create_mesh(model=args.model_parallelism, device=device)
     if args.quantize == "int8":
-        step_fn = build_quantized_eval_step(cfg, top_k=args.top_k,
-                                            host_subsampled=True)
+        step_fn = build_sharded_quantized_eval_step(cfg, mesh, top_k=args.top_k,
+                                                    host_subsampled=True)
     else:
         # frame path: the loader strides the frames at the parser
         # a rank's program: the ranks' rows are gathered in run_eval_epoch
-        step_fn = build_eval_step(cfg, top_k=args.top_k,
-                                  host_subsampled=not aggregated,
-                                  aggregated=aggregated)
+        step_fn = build_sharded_eval_step(cfg, mesh, top_k=args.top_k,
+                                          host_subsampled=not aggregated,
+                                          aggregated=aggregated)
+    shard_state(state, mesh)  # each checkpoint restores into the columns
     writer = summary_lib.for_master(os.path.join(cfg.train_dir, "eval"),
                                     host.is_master)
     results = []
@@ -87,7 +93,7 @@ def evaluate(args):
                                    frame_stride=1 if aggregated else cfg.every_n,
                                    aggregated=aggregated, host=host), device,
             lambda f, l, n: step_fn(params, f, l, n), state.global_step, writer,
-            logger))
+            logger, mesh=mesh))
 
     poll_checkpoints(cfg, args, evaluate_checkpoint, logger)
     writer.close()

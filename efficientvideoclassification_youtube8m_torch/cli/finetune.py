@@ -24,8 +24,12 @@ from efficientvideoclassification_youtube8m_torch.cli import flags as flags_lib
 from efficientvideoclassification_youtube8m_torch.cli.loop import run_training_loop
 from efficientvideoclassification_youtube8m_torch.ops import prng
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
-from efficientvideoclassification_youtube8m_torch.parallel.mesh import create_mesh
+from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
+    create_mesh,
+    shard_state,
+)
 from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
+    build_shardmap_finetune_step,
     build_sharded_finetune_step,
 )
 from efficientvideoclassification_youtube8m_torch.train.checkpoint import (
@@ -55,7 +59,7 @@ def finetune(args):
     aggregated = not args.frame_features
     device = flags_lib.resolve_device(args)
     distributed.initialize(device=device)
-    host = distributed.host_context(cfg.batch_size)
+    host = distributed.host_context(cfg.batch_size, args.model_parallelism)
     if host.multi_host:
         logger.info("Multi-host: process %d/%d, local batch %d of global %d",
                     host.process_index, host.process_count,
@@ -81,9 +85,11 @@ def finetune(args):
     logger.info("%s", flags_lib.param_names(state.student, "model_student"))
     logger.info("Device: %s", device)
     mesh = create_mesh(model=args.model_parallelism, device=device)
-    step_fn = build_sharded_finetune_step(cfg, optimizer, mesh, top_k=args.top_k,
-                                          host_subsampled=not aggregated,
-                                          aggregated=aggregated)
+    build = (build_shardmap_finetune_step if args.use_shardmap_train
+             else build_sharded_finetune_step)
+    step_fn = build(cfg, optimizer, mesh, top_k=args.top_k,
+                    host_subsampled=not aggregated, aggregated=aggregated)
+    shard_state(state, mesh)  # each rank's columns, before the restore
     if ckpt:
         logger.info("Resuming student from %s", ckpt)
         restore_checkpoint(ckpt, state)
@@ -144,7 +150,7 @@ def finetune(args):
         loader=loader, device=device, state=state, step_fn=step_fn,
         saver=AsyncCheckpointSaver(enabled=args.async_checkpoint),
         writer=writer, cfg=cfg, args=args, log_step=log_step,
-        write_graph_summaries=write_graph_summaries, logger=logger,
+        write_graph_summaries=write_graph_summaries, logger=logger, mesh=mesh,
     )
     print("Total time taken is " + str(time.time() - start_time))
     return state

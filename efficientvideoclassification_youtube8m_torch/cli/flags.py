@@ -111,15 +111,17 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    "scripts/acceptance_run.py on the card.")
     p.add_argument("--faithful_quirks", type=_bool, default=True)
     p.add_argument("--model_parallelism", type=int, default=1,
-                   help="tensor parallelism (the column-sharded MoE head); "
-                   "> 1 is not ported")
+                   help="size of the 'model' mesh axis (tensor "
+                   "parallelism: the column-sharded MoE head); the "
+                   "processes of a group are laid out data x model")
     p.add_argument("--sync_batch_norm", type=_bool, default=False,
                    help="DBoF's batch-norm moments averaged over the "
                    "data-parallel ranks inside the forward")
     p.add_argument("--use_shardmap_train", type=_bool, default=False,
                    help="the JAX package's explicit data-parallel train "
                    "step; every data-parallel step of this package is "
-                   "that per-device program, so it changes nothing")
+                   "that per-device program, so it changes nothing; "
+                   "requires model_parallelism=1")
     p.add_argument("--save_model_secs", type=int, default=30 * 60)
     p.add_argument("--save_summaries_secs", type=int, default=120,
                    help="cadence of the in-graph scalar + per-variable "
@@ -223,12 +225,8 @@ def resolve_device(args: argparse.Namespace) -> torch.device:
 
 def check_ported(args: argparse.Namespace) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a flag the
-    port does not cover yet: orbax checkpoints and tensor parallelism."""
+    port does not cover yet: orbax checkpoints."""
     if args.checkpoint_format == "orbax":
         raise NotImplementedError(
             "--checkpoint_format orbax is not ported yet (ROADMAP Queue 1, "
             "orbax checkpoints); use msgpack")
-    if getattr(args, "model_parallelism", 1) > 1:
-        raise NotImplementedError(
-            "--model_parallelism > 1 (the column-sharded MoE head) is not "
-            "ported yet (ROADMAP Queue 1, the tensor-parallel MoE head)")

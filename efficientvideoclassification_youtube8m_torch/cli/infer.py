@@ -49,9 +49,13 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
     StudentState,
     init_model,
 )
-from efficientvideoclassification_youtube8m_torch.train.step import (
-    build_eval_step,
-    build_quantized_eval_step,
+from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
+    create_mesh,
+    shard_state,
+)
+from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
+    build_sharded_eval_step,
+    build_sharded_quantized_eval_step,
 )
 
 logger = logging.getLogger("infer")
@@ -105,6 +109,10 @@ def inference(args) -> None:
     # parameters only: the optimizer slots are neither allocated nor read
     state = StudentState(student=init_model(cfg, device=device), opt_student={},
                          global_step=0, dropout_keep_prob=cfg.dropout)
+    # the JAX binary's mesh: one process is a mesh of one (model > 1
+    # raises, as it does on one device)
+    mesh = create_mesh(model=args.model_parallelism, device=device)
+    shard_state(state, mesh)
     ckpt = latest_checkpoint(cfg.train_dir)
     if ckpt is None:
         raise IOError(f"unable to find a checkpoint at location: {cfg.train_dir}")
@@ -119,12 +127,12 @@ def inference(args) -> None:
         params = quantize_hierarchical_params(
             params, cfg.total_feature_size, cfg.lstm_cells, cfg.lstm_layers,
             device=device)
-        step_fn = build_quantized_eval_step(cfg, top_k=args.top_k,
-                                            host_subsampled=True)
+        step_fn = build_sharded_quantized_eval_step(cfg, mesh, top_k=args.top_k,
+                                                    host_subsampled=True)
     else:
-        step_fn = build_eval_step(cfg, top_k=args.top_k,
-                                  host_subsampled=not aggregated,
-                                  aggregated=aggregated)
+        step_fn = build_sharded_eval_step(cfg, mesh, top_k=args.top_k,
+                                          host_subsampled=not aggregated,
+                                          aggregated=aggregated)
     # frame path: parse and move only the kept frames
     loader = eval_loader(cfg, args, frame_stride=1 if aggregated else cfg.every_n,
                          aggregated=aggregated, pattern=args.input_data_pattern)

@@ -12,7 +12,8 @@ save_model_secs cadence through the
 AsyncCheckpointSaver, writes graph summaries on the save_summaries_secs
 cadence, and on Ctrl-C saves, logs the pending step, joins the writer and
 closes the summary writer. Under a process group the loader goes through
-`distributed.sync_host_streams` (every rank stops when one runs dry) and
+`distributed.sync_host_streams` (every rank stops when one runs dry, and
+the ranks of a model group step on the same batches) and
 the master's clock decides the cadences for every rank.
 """
 
@@ -98,19 +99,21 @@ class HostFetch:
 
 
 def run_training_loop(*, loader, device, state, step_fn, saver, writer, cfg,
-                      args, log_step, write_graph_summaries, logger):
+                      args, log_step, write_graph_summaries, logger, mesh=None):
     """Drive `step_fn` over the loader until the epoch limit or Ctrl-C.
 
     `log_step(metrics, host_labels, seconds_per_batch)` and
     `write_graph_summaries(metrics, global_step_val, state)` are the
-    binary-specific pieces. Returns the final state."""
+    binary-specific pieces; `mesh` is the step's (a model group's ranks
+    step on the batches of its first rank's loader). Returns the final
+    state."""
     last_save = time.time()
     last_summary = time.time()
     pending = None  # (HostFetch of the metrics, host_labels, batch_start_time)
     interrupted = False
     try:
         for (f, l, n), host_labels in device_prefetch(
-                distributed.sync_host_streams(loader, "train"), device):
+                distributed.sync_host_streams(loader, "train", mesh), device):
             batch_start_time = time.time()
             state, metrics = step_fn(state, f, l, n)
             metrics = HostFetch(metrics)

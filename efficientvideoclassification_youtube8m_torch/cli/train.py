@@ -23,8 +23,12 @@ import time
 from efficientvideoclassification_youtube8m_torch.cli import flags as flags_lib
 from efficientvideoclassification_youtube8m_torch.cli.loop import run_training_loop
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
-from efficientvideoclassification_youtube8m_torch.parallel.mesh import create_mesh
+from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
+    create_mesh,
+    shard_state,
+)
 from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
+    build_shardmap_distill_step,
     build_sharded_distill_step,
 )
 from efficientvideoclassification_youtube8m_torch.train.checkpoint import (
@@ -61,7 +65,7 @@ def train(args):
             "cli.finetune --frame_features=False --start_new_model.")
     device = flags_lib.resolve_device(args)
     distributed.initialize(device=device)
-    host = distributed.host_context(cfg.batch_size)
+    host = distributed.host_context(cfg.batch_size, args.model_parallelism)
     if host.multi_host:
         logger.info("Multi-host: process %d/%d, local batch %d of global %d",
                     host.process_index, host.process_count,
@@ -77,9 +81,15 @@ def train(args):
     logger.info("Device: %s", device)
     mesh = create_mesh(model=args.model_parallelism, device=device)
     logger.info("Device mesh: %s", mesh.shape)
-    # --use_shardmap_train names the same step: every data-parallel step
-    # of the port is a per-device program with one gradient all-reduce
-    step_fn = build_sharded_distill_step(cfg, optimizer, mesh, top_k=args.top_k)
+    # --use_shardmap_train names the same step (every data-parallel step
+    # of the port is a per-device program with one gradient all-reduce),
+    # and refuses a model axis, as in JAX
+    build = (build_shardmap_distill_step if args.use_shardmap_train
+             else build_sharded_distill_step)
+    step_fn = build(cfg, optimizer, mesh, top_k=args.top_k)
+    # each rank keeps its columns before restoring, which cuts the
+    # checkpoint's whole leaves to them
+    shard_state(state, mesh)
     # master-elected resume checkpoint: ranks racing their own directory
     # reads could restore different states
     ckpt = None if args.start_new_model else distributed.broadcast_str(
@@ -156,7 +166,7 @@ def train(args):
     state = run_training_loop(
         loader=loader, device=device, state=state, step_fn=step_fn,
         saver=saver, writer=writer, cfg=cfg, args=args, log_step=log_step,
-        write_graph_summaries=write_graph_summaries, logger=logger,
+        write_graph_summaries=write_graph_summaries, logger=logger, mesh=mesh,
     )
     print("Total time taken is " + str(time.time() - start_time))
     return state

@@ -23,7 +23,10 @@ from typing import Optional
 from efficientvideoclassification_youtube8m_torch.cli import flags as flags_lib
 from efficientvideoclassification_youtube8m_torch.cli.loop import HostFetch, device_prefetch
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
-from efficientvideoclassification_youtube8m_torch.parallel.mesh import create_mesh
+from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
+    create_mesh,
+    shard_state,
+)
 from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
     build_sharded_validate_step,
 )
@@ -78,13 +81,15 @@ def eval_loader(cfg, args, frame_stride: int = 1, aggregated: bool = False,
 
 
 def run_eval_epoch(cfg, args, loader, device, launch, global_step_val, writer,
-                   log, with_lrep=False):
+                   log, with_lrep=False, mesh=None):
     """The eval binaries' epoch: a lag-`fetch_depth` FIFO ring of launched
     batches, one packed fetch per batch (`gather_step_outputs`, its copy
-    queued behind its own step by `HostFetch`), the reference's per-batch
+    queued behind its own step by `HostFetch`, one row set per data index
+    of the `--model_parallelism` layout), the reference's per-batch
     log line to the logger `log` (with the step's L_REP when `with_lrep`)
     and the epoch summary. FIFO order keeps the epoch metrics those of the
-    sequential loop."""
+    sequential loop. `mesh` is the step's (a model group's ranks run the
+    batches of its first rank's loader)."""
     evl_metrics = EvaluationMetrics(cfg.num_classes, args.top_k)
     examples_processed = 0
     start = time.time()
@@ -94,7 +99,8 @@ def run_eval_epoch(cfg, args, loader, device, launch, global_step_val, writer,
     def drain(fetch, labels, pad):
         nonlocal examples_processed
         out = fetch.get()
-        rows = distributed.gather_step_outputs(out, labels, pad)
+        rows = distributed.gather_step_outputs(out, labels, pad,
+                                               args.model_parallelism)
         info = evl_metrics.accumulate_topk(
             rows["topk_val"], rows["topk_idx"], rows["labels"],
             rows["per_example_loss"], perr_precision=rows["perr_precision"])
@@ -110,7 +116,7 @@ def run_eval_epoch(cfg, args, loader, device, launch, global_step_val, writer,
     ring: deque = deque()
     depth = max(1, cfg.fetch_depth)
     for (f, l, n), (labels, pad) in device_prefetch(
-            distributed.sync_host_streams(loader, "eval"), device,
+            distributed.sync_host_streams(loader, "eval", mesh), device,
             host_keep=lambda b: (b.labels, b.pad)):
         ring.append((HostFetch(launch(f, l, n), keys), labels, pad))
         if len(ring) > depth:
@@ -158,16 +164,16 @@ def evaluate(args):
     flags_lib.resolve_steps_per_dispatch(args, logger=logger)
     device = flags_lib.resolve_device(args)
     distributed.initialize(device=device)
-    host = distributed.host_context(cfg.batch_size)
+    host = distributed.host_context(cfg.batch_size, args.model_parallelism)
     # parameters only: the optimizer slots this binary never reads are
     # neither allocated nor restored
     state = DistillState(teacher=init_model(cfg, device=device),
                          student=init_model(cfg, device=device),
                          opt_teacher={}, opt_student={}, global_step=0,
                          dropout_keep_prob=cfg.dropout)
-    step_fn = build_sharded_validate_step(
-        cfg, create_mesh(model=args.model_parallelism, device=device),
-        top_k=args.top_k)
+    mesh = create_mesh(model=args.model_parallelism, device=device)
+    step_fn = build_sharded_validate_step(cfg, mesh, top_k=args.top_k)
+    shard_state(state, mesh)  # each checkpoint restores into the columns
     writer = summary_lib.for_master(os.path.join(cfg.train_dir, "eval"),
                                     host.is_master)
     results = []
@@ -178,7 +184,7 @@ def evaluate(args):
         results.append(run_eval_epoch(
             cfg, args, eval_loader(cfg, args, host=host), device,
             lambda f, l, n: step_fn(state.teacher, state.student, f, l, n),
-            state.global_step, writer, logger, with_lrep=True))
+            state.global_step, writer, logger, with_lrep=True, mesh=mesh))
 
     poll_checkpoints(cfg, args, evaluate_checkpoint, logger)
     writer.close()

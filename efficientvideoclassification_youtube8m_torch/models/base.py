@@ -20,6 +20,11 @@ import torch
 from torch import nn
 
 from efficientvideoclassification_youtube8m_torch.ops import prng
+from efficientvideoclassification_youtube8m_torch.ops.collectives import (
+    copy_to_model,
+    gather_columns,
+    reduce_from_model,
+)
 
 MODEL_REGISTRY: Dict[str, Any] = {}
 
@@ -102,5 +107,25 @@ def dropout(x: torch.Tensor, keep_prob, key: prng.Key) -> torch.Tensor:
     drawn as `jax.random` draws it. `keep_prob` is a float or a 0-d
     tensor, used in float32."""
     keep = torch.as_tensor(keep_prob, dtype=torch.float32)
-    mask = prng.bernoulli(key, keep, x.shape, device=x.device)
+    mask = prng.batch_uniform(key, x.shape, 0.0, 1.0, device=x.device) < keep
     return torch.where(mask, x / keep, 0.0)
+
+
+def head_input(head: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel head's input: `x`, whose gradient is summed over
+    the head's model group when the head is sharded (each rank's classes
+    give a part of it)."""
+    shards = getattr(head, "model_shards", None)
+    return x if shards is None else copy_to_model(x, shards)
+
+
+def gather_classes(head: nn.Module, predictions: torch.Tensor,
+                   l2: torch.Tensor):
+    """A column-parallel head's [B, V] predictions and whole l2 term from
+    this rank's classes (`gather_columns` and `reduce_from_model` over
+    its model group, `parallel.mesh.shard_module`); as they are when the
+    head is not sharded."""
+    shards = getattr(head, "model_shards", None)
+    if shards is None:
+        return predictions, l2
+    return gather_columns(predictions, shards), reduce_from_model(l2, shards)

@@ -24,12 +24,15 @@ from torch import nn
 from efficientvideoclassification_youtube8m_torch.models.base import (
     Params,
     dense_init,
+    gather_classes,
     get_model,
+    head_input,
     l2_loss,
     linear,
     register_model,
 )
 from efficientvideoclassification_youtube8m_torch.ops import prng
+from efficientvideoclassification_youtube8m_torch.ops.collectives import all_reduce_sum
 from efficientvideoclassification_youtube8m_torch.ops.kernels.lstm_scan import (
     multi_lstm_scan_fused,
 )
@@ -46,6 +49,19 @@ def _check_classifier(model: nn.Module, classifier: Optional[str]) -> None:
     if classifier is not None and classifier != model.classifier.name:
         raise ValueError(f"the module's classifier is a "
                          f"{model.classifier.name}, not {classifier}")
+
+
+def lstm_scan_fn(use_kernel: bool = False, use_kernel_train: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
+    """The stacked-LSTM scan of both levels: the differentiable train
+    kernels (`use_kernel_train`), the forward-only bf16 kernel
+    (`use_kernel`), or the plain scan in `compute_dtype`. Returns
+    fn(layers, xs [B, T, D], seq_len [B]) -> final state."""
+    if use_kernel_train:
+        return multi_lstm_scan_train_fused
+    if use_kernel:
+        return multi_lstm_scan_fused
+    return functools.partial(multi_lstm_scan, compute_dtype=compute_dtype)
 
 
 @register_model("HierarchicalLstmModel")
@@ -100,13 +116,7 @@ class HierarchicalLstmModel(nn.Module):
             raise ValueError(f"{T} frames do not split into {num_chunks} chunks")
         chunk_len = T // num_chunks
 
-        if use_kernel_train:
-            scan_fn = multi_lstm_scan_train_fused
-        elif use_kernel:
-            scan_fn = multi_lstm_scan_fused
-        else:
-            scan_fn = functools.partial(multi_lstm_scan,
-                                        compute_dtype=compute_dtype)
+        scan_fn = lstm_scan_fn(use_kernel, use_kernel_train, compute_dtype)
 
         # L1: fold chunks into the batch axis -> one shared-weight scan.
         x_chunks = model_input.reshape(B * num_chunks, chunk_len, D)
@@ -134,7 +144,10 @@ class HierarchicalLstmModel(nn.Module):
 @register_model("FrameLevelLogisticModel")
 class FrameLevelLogisticModel(nn.Module):
     """Mean-pool over the true frames -> sigmoid FC
-    (frame_level_models.py:50-83)."""
+    (frame_level_models.py:50-83); column-parallel under tensor
+    parallelism, as the MoE head."""
+
+    column_parallel = True
 
     def __init__(self, input_size: int, vocab_size: int,
                  key: Optional[prng.Key] = None, device=None, **_):
@@ -142,11 +155,11 @@ class FrameLevelLogisticModel(nn.Module):
         self.fc = dense_init(input_size, vocab_size, key, device)
 
     def forward(self, model_input, num_frames, l2_penalty: float = 1e-8, **_):
-        avg_pooled = (torch.sum(model_input, dim=1)
+        avg_pooled = (torch.sum(head_input(self, model_input), dim=1)
                       / num_frames.to(torch.float32)[:, None])
         out = torch.sigmoid(linear(self.fc, avg_pooled))
-        return {"predictions": out,
-                "regularization_loss": l2_penalty * l2_loss(self.fc.w)}
+        out, l2 = gather_classes(self, out, l2_loss(self.fc.w))
+        return {"predictions": out, "regularization_loss": l2_penalty * l2}
 
 
 def _take_frames(model_input: torch.Tensor, frame_index: torch.Tensor):
@@ -160,8 +173,8 @@ def sample_random_frames(model_input, num_frames, num_samples: int,
                          rng: prng.Key):
     """Uniform random frame indices below num_frames
     (model_utils.py:39-58), drawn from `rng` as the JAX sampler draws."""
-    u = prng.uniform(rng, (model_input.shape[0], num_samples), 0.0, 1.0,
-                     device=model_input.device)
+    u = prng.batch_uniform(rng, (model_input.shape[0], num_samples), 0.0, 1.0,
+                           device=model_input.device)
     frame_index = (u * num_frames.to(torch.float32)[:, None]).to(torch.int32)
     return _take_frames(model_input, frame_index)
 
@@ -174,8 +187,8 @@ def sample_random_sequence(model_input, num_frames, num_samples: int,
     offsets = torch.arange(num_samples, dtype=torch.int32,
                            device=model_input.device)[None, :]
     max_start = torch.clamp(nf - num_samples, min=0)
-    u = prng.uniform(rng, (model_input.shape[0], 1), 0.0, 1.0,
-                     device=model_input.device)
+    u = prng.batch_uniform(rng, (model_input.shape[0], 1), 0.0, 1.0,
+                           device=model_input.device)
     start = (u * (max_start + 1).to(torch.float32)[:, None]).to(torch.int32)
     frame_index = torch.minimum(start + offsets, nf[:, None] - 1)
     return _take_frames(model_input, frame_index)
@@ -231,10 +244,6 @@ def _bn_apply(p: Params, x: torch.Tensor, is_training: bool,
     the global batch (the ranks' batches are equal in size)."""
     if is_training:
         if group is not None:
-            from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
-                all_reduce_sum,
-            )
-
             moments = torch.cat([torch.mean(x, dim=0),
                                  torch.mean(torch.square(x), dim=0)])
             moments = all_reduce_sum(moments, group) / torch.distributed.get_world_size(group)

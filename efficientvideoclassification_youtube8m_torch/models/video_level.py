@@ -24,7 +24,9 @@ from efficientvideoclassification_youtube8m_torch.models.base import (
     dense,
     dense_init,
     dropout,
+    gather_classes,
     glorot_uniform,
+    head_input,
     l2_loss,
     linear,
     register_model,
@@ -41,7 +43,16 @@ class MoeModel(nn.Module):
     experts, prediction = sum of the first m gate*expert products.
     Weights are stored in the JAX layout ``gates.w [D, m+1, V]``,
     ``experts.w [D, m, V]``, ``experts.b [m, V]``.
+
+    Column-parallel under tensor parallelism (`parallel.mesh.shard_module`
+    sets `model_shards`): the rank with model index r of k holds the
+    classes ``[r V/k, (r+1) V/k)`` of all three, computes their
+    predictions (the mixture softmax is over axis 1, so it stays local)
+    and gathers the [B, V] predictions; the l2 term is the model group's
+    sum of the local ones, and the input's gradient the group's sum.
     """
+
+    column_parallel = True
 
     def __init__(self, input_size: int, vocab_size: int,
                  num_mixtures: int = 2,
@@ -72,8 +83,8 @@ class MoeModel(nn.Module):
             raise ValueError(f"the module has {self.num_mixtures} mixtures, "
                              f"not {num_mixtures}")
         D = model_input.shape[-1]
-        m, V = self.num_mixtures, self.vocab_size
-        x = model_input.to(compute_dtype)
+        m, V = self.num_mixtures, self.experts.b.shape[-1]  # this rank's classes
+        x = head_input(self, model_input).to(compute_dtype)
         gate_act = dense(self.gates.w.reshape(D, -1).to(compute_dtype),
                          x).reshape(-1, m + 1, V)
         expert_act = dense(self.experts.w.reshape(D, -1).to(compute_dtype),
@@ -81,13 +92,17 @@ class MoeModel(nn.Module):
         gating = torch.softmax(gate_act, dim=1)  # [B, m+1, V]
         experts = torch.sigmoid(expert_act)  # [B, m, V]
         predictions = torch.sum(gating[:, :m] * experts, dim=1)
-        reg = l2_penalty * (l2_loss(self.gates.w) + l2_loss(self.experts.w))
-        return {"predictions": predictions, "regularization_loss": reg}
+        l2 = l2_loss(self.gates.w) + l2_loss(self.experts.w)
+        predictions, l2 = gather_classes(self, predictions, l2)
+        return {"predictions": predictions, "regularization_loss": l2_penalty * l2}
 
 
 @register_model("LogisticModel")
 class LogisticModel(nn.Module):
-    """Sigmoid FC(vocab) with weight l2 (video_level_models.py:375-392)."""
+    """Sigmoid FC(vocab) with weight l2 (video_level_models.py:375-392);
+    column-parallel under tensor parallelism, as `MoeModel`."""
+
+    column_parallel = True
 
     def __init__(self, input_size: int, vocab_size: int,
                  key: Optional[prng.Key] = None, device=None, **_):
@@ -95,9 +110,9 @@ class LogisticModel(nn.Module):
         self.fc = dense_init(input_size, vocab_size, key, device)
 
     def forward(self, model_input, l2_penalty: float = 1e-8, **_):
-        out = torch.sigmoid(linear(self.fc, model_input))
-        return {"predictions": out,
-                "regularization_loss": l2_penalty * l2_loss(self.fc.w)}
+        out = torch.sigmoid(linear(self.fc, head_input(self, model_input)))
+        out, l2 = gather_classes(self, out, l2_loss(self.fc.w))
+        return {"predictions": out, "regularization_loss": l2_penalty * l2}
 
 
 class _HiddenHead(nn.Module):

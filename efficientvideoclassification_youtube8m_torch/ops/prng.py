@@ -20,6 +20,8 @@ tensors masked to 32 bits, on the device the result is wanted on.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Any, List, Sequence, Tuple, Union
 
@@ -121,6 +123,38 @@ def bernoulli(key: Key, p, shape: Sequence[int], device=None) -> torch.Tensor:
     """`jax.random.bernoulli(key, p, shape)` for a float32 `p` (a float or
     a 0-d tensor): ``uniform(key, shape, 0, 1) < p``."""
     return uniform(key, shape, 0.0, 1.0, device) < p
+
+
+# (index, count) while a rank's rows are slice `index` of `count` equal
+# slices of the global batch (`global_batch_rows`)
+_ROWS: contextvars.ContextVar = contextvars.ContextVar("prng_rows", default=None)
+
+
+@contextlib.contextmanager
+def global_batch_rows(index: int, count: int):
+    """Inside, `batch_uniform` draws for the global batch of `count`
+    equal slices and returns slice `index`: the masks and frame samples a
+    tensor-parallel step draws, as the JAX package's GSPMD program draws
+    them for its whole batch (no device index folded in)."""
+    token = _ROWS.set((index, count))
+    try:
+        yield
+    finally:
+        _ROWS.reset(token)
+
+
+def batch_uniform(key: Key, shape: Sequence[int], minval: float, maxval: float,
+                  device=None) -> torch.Tensor:
+    """`uniform` of a draw whose first axis is the batch: the draw itself,
+    or inside `global_batch_rows` this rank's rows of the global batch's
+    draw."""
+    rows = _ROWS.get()
+    if rows is None:
+        return uniform(key, shape, minval, maxval, device)
+    index, count = rows
+    b = shape[0]
+    full = uniform(key, (b * count, *shape[1:]), minval, maxval, device)
+    return full[index * b:(index + 1) * b]
 
 
 # XLA's single-precision ErfInv (M. Giles, "Approximating the erfinv

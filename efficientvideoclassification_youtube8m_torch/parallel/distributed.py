@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from efficientvideoclassification_youtube8m_torch.parallel.mesh import default_device
+
 # how long a rank waits for its peers at start-up and in a collective
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=600)
 
@@ -89,9 +91,11 @@ def initialize(coordinator_address: Optional[str] = None,
     no-op for a single process or when a group is already up (several
     binaries' mains in one process).
 
-    The backend is `backend`, else NCCL when `device` is a CUDA device
-    and gloo otherwise. A peer that does not join within `timeout`
-    (default `DEFAULT_TIMEOUT`) raises (torch.distributed's DistError)."""
+    `device` defaults to the rank's CUDA device (LOCAL_RANK's card; no
+    CUDA raises, `mesh.default_device`). The backend is `backend`, else
+    NCCL when `device` is a CUDA device and gloo otherwise. A peer that
+    does not join within `timeout` (default `DEFAULT_TIMEOUT`) raises
+    (torch.distributed's DistError)."""
     global _HOST_GROUP
     if dist.is_initialized():
         return
@@ -99,7 +103,7 @@ def initialize(coordinator_address: Optional[str] = None,
         coordinator_address, num_processes, process_id = _from_environment()
     if coordinator_address is None:
         return  # single process
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = default_device() if device is None else torch.device(device)
     timeout = DEFAULT_TIMEOUT if timeout is None else timeout
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
@@ -146,7 +150,10 @@ class HostContext:
     """One process's place in the cluster (the reference's task index /
     is_chief, `train.py:704-733`): which input shards it reads, how many
     rows of the GLOBAL batch it loads, and whether it owns the side
-    effects (summaries, checkpoints, exports)."""
+    effects (summaries, checkpoints, exports). Under tensor parallelism
+    the index and count are the rank's data index and the data size: the
+    ranks of a model group share one slice, which its first rank reads
+    (`sync_host_streams`)."""
 
     process_index: int
     process_count: int
@@ -158,17 +165,21 @@ class HostContext:
         return self.process_count > 1
 
 
-def host_context(global_batch_size: int) -> HostContext:
+def host_context(global_batch_size: int, model: int = 1) -> HostContext:
     """This process's role after `initialize()`. `--batch_size` keeps its
-    single-process meaning, the GLOBAL batch; each process loads its
-    `1/process_count` slice."""
+    single-process meaning, the GLOBAL batch; each data index loads its
+    `1/data` slice, where data = processes / `model` (the
+    `--model_parallelism` of `mesh.create_mesh`)."""
     index, count = host_shard()
+    if count % model:
+        raise ValueError(f"{count} processes not divisible by model={model}")
+    index, count = index // model, count // model
     if global_batch_size % count:
         raise ValueError(f"--batch_size {global_batch_size} not divisible "
-                         f"by {count} processes")
+                         f"by {count} data-parallel processes")
     return HostContext(process_index=index, process_count=count,
                        local_batch_size=global_batch_size // count,
-                       is_master=index == 0)
+                       is_master=rank() == 0)
 
 
 def _dummy_batch(loader):
@@ -191,7 +202,7 @@ def _dummy_batch(loader):
                       num_frames=np.ones((b,), np.int32))
 
 
-def sync_host_streams(loader, mode: str = "train"):
+def sync_host_streams(loader, mode: str = "train", mesh=None):
     """Keep every rank's step count identical. Shards are never perfectly
     balanced, and a rank that runs dry while the others step would leave
     them waiting in the next collective. Each iteration reduces a 1-bit
@@ -203,20 +214,36 @@ def sync_host_streams(loader, mode: str = "train"):
         padded dummy batches, whose rows the eval gather drops, so no
         real example is lost.
 
-    One process: a passthrough."""
+    Under tensor parallelism (`mesh.model` > 1) the ranks of a model group
+    must step on the same rows, and a loader's order is not reproducible
+    across processes (its reader threads race unless
+    `--deterministic_input`). So only the group's first rank (model index
+    0) reads `loader`; it broadcasts each batch over the model group, and
+    the group's other ranks yield the batches it sent. One process: a
+    passthrough."""
     if mode not in ("train", "eval"):
         raise ValueError(f"mode must be 'train' or 'eval', got {mode!r}")
     if world_size() == 1:
         yield from loader
         return
     op = dist.ReduceOp.MIN if mode == "train" else dist.ReduceOp.MAX
-    it = iter(loader)
+    group = mesh.model_group if mesh is not None and mesh.model > 1 else None
+    reader = group is None or mesh.model_index == 0
+    # a rank that does not read adds the reduction's neutral value
+    idle = 1 if mode == "train" else 0
+    it = iter(loader) if reader else None
     while True:
-        batch = next(it, None)
-        flag = torch.tensor([0 if batch is None else 1], dtype=torch.int32)
+        batch = next(it, None) if reader else None
+        flag = torch.tensor([int(batch is not None) if reader else idle],
+                            dtype=torch.int32)
         dist.all_reduce(flag, op=op, group=_HOST_GROUP)
         if not int(flag):
             return
+        if group is not None:
+            box = [batch]
+            dist.broadcast_object_list(box, src=mesh.rank - mesh.model_index,
+                                       group=group)
+            batch = box[0]
         yield _dummy_batch(loader) if batch is None else batch
 
 
@@ -282,14 +309,16 @@ def all_gather_arrays(arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return {k: np.concatenate(v) for k, v in out.items()}
 
 
-def gather_eval_rows(arrays: Dict[str, Any], pad: int
+def gather_eval_rows(arrays: Dict[str, Any], pad: int, model: int = 1
                      ) -> Tuple[Dict[str, np.ndarray], int]:
-    """The GLOBAL eval rows of one step: every rank's valid rows (its
-    batch without its `pad` trailing padding rows) in rank order, so the
-    epoch metrics (GAP's global top-k heap in particular) see the stream
-    a single process would, and the summed pad. The pad counts ride in
-    the same collective as the rows. One process: the rows without the
-    padding."""
+    """The GLOBAL eval rows of one step: every data index's valid rows
+    (its batch without its `pad` trailing padding rows) in rank order, so
+    the epoch metrics (GAP's global top-k heap in particular) see the
+    stream a single process would, and the summed pad. The pad counts
+    ride in the same collective as the rows. Under tensor parallelism
+    (`model` > 1) the ranks of a model group hold the same rows (the
+    batches `sync_host_streams` broadcast), and those of its first rank
+    are kept. One process: the rows without the padding."""
     arrays = {k: np.asarray(v) for k, v in arrays.items()}
     if world_size() == 1:
         if pad:
@@ -299,9 +328,11 @@ def gather_eval_rows(arrays: Dict[str, Any], pad: int
     gathered = all_gather_arrays(
         dict(arrays, __pad__=np.asarray([pad], np.int32)))
     pads = gathered.pop("__pad__")
+    ranks = range(0, len(pads), model)
     keep = np.concatenate([np.arange(p * block, (p + 1) * block - int(pads[p]))
-                           for p in range(len(pads))])
-    return {k: v[keep] for k, v in gathered.items()}, int(pads.sum())
+                           for p in ranks])
+    return ({k: v[keep] for k, v in gathered.items()},
+            int(sum(int(pads[p]) for p in ranks)))
 
 
 def _paired_k(m: int):
@@ -346,11 +377,11 @@ def unpack_host_pack(pack: np.ndarray, labels) -> Dict[str, Any]:
     }
 
 
-def gather_step_outputs(out: Dict[str, Any], labels, pad: int
-                        ) -> Dict[str, np.ndarray]:
+def gather_step_outputs(out: Dict[str, Any], labels, pad: int,
+                        model: int = 1) -> Dict[str, np.ndarray]:
     """The eval binaries' per-batch assembly: the step's packed host
     bundle crosses to the host in ONE transfer, is unpacked, and every
-    rank's valid rows are gathered (`gather_eval_rows`)."""
+    data index's valid rows are gathered (`gather_eval_rows`)."""
     pack = out["host_pack"].cpu().numpy()
-    rows, _ = gather_eval_rows(unpack_host_pack(pack, labels), pad)
+    rows, _ = gather_eval_rows(unpack_host_pack(pack, labels), pad, model)
     return rows

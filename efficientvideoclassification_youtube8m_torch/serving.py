@@ -16,6 +16,18 @@ activation forward (ops/quantize.py): the weights are quantized once, at
 construction, and on a CUDA device the recurrences run in the int8 kernel
 (ops/kernels/lstm_scan_int8.py). Student requests are strided on the
 host, so only 1/every_n of the uint8 bytes cross to the device.
+
+Over a mesh (parallel/mesh.py; every rank builds the Predictor and sends
+it the same request, and every rank returns the whole [B, vocab]):
+
+    p = Predictor(cfg, params, device=dev, mesh=create_mesh(device=dev))
+    p = Predictor(cfg, params, device=dev, sequence_parallel=True)
+
+`mesh=` alone is data-parallel serving, bf16 or int8: each rank runs its
+data index's rows of every padded serve_batch chunk and the rows are
+gathered. `sequence_parallel=True` (bf16, the hierarchical model) splits
+each video's chunks over the data axis
+(parallel/sequence_parallel.py) and runs L2 and the head on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from efficientvideoclassification_youtube8m_torch.ops.preprocess import (
@@ -35,7 +48,12 @@ from efficientvideoclassification_youtube8m_torch.ops.quantize import (
     quantize_hierarchical_params,
     quantized_hierarchical_forward,
 )
+from efficientvideoclassification_youtube8m_torch.parallel.mesh import create_mesh
+from efficientvideoclassification_youtube8m_torch.parallel.sequence_parallel import (
+    build_sequence_parallel_state_fn,
+)
 from efficientvideoclassification_youtube8m_torch.train.step import (
+    _model_apply_kwargs,
     forward_student,
     forward_teacher,
     preprocess_batch,
@@ -62,10 +80,12 @@ class Predictor:
             raise ValueError(f"tower must be 'student' or 'teacher', got {tower!r}")
         if quantize not in ("none", "int8"):
             raise ValueError(f"quantize must be 'none' or 'int8', got {quantize!r}")
-        if sequence_parallel or mesh is not None:
-            raise NotImplementedError(
-                "serving over a mesh (sequence-parallel or sharded) is not "
-                "ported yet (ROADMAP Queue 1, sequence-parallel serving)")
+        if quantize == "int8" and sequence_parallel:
+            raise ValueError(
+                "quantize='int8' + sequence_parallel is not supported")
+        if sequence_parallel and cfg.model != "HierarchicalLstmModel":
+            raise ValueError(
+                "sequence-parallel serving requires HierarchicalLstmModel")
         self.cfg = cfg
         self.tower = tower
         self.serve_batch = serve_batch
@@ -83,6 +103,28 @@ class Predictor:
         else:
             self.model = load_jax_params(init_model(cfg, device=self.device),
                                          params_or_module).eval()
+        self._state_fn = None
+        if sequence_parallel:
+            self.mesh = mesh if mesh is not None else create_mesh(device=self.device)
+            self._init_sequence_parallel(cfg, tower)
+        else:
+            # data-parallel rows only where there is more than one data index
+            self.mesh = mesh if mesh is not None and mesh.data > 1 else None
+            if self.mesh is not None and serve_batch % self.mesh.data:
+                raise ValueError(f"serve_batch {serve_batch} not divisible by "
+                                 f"the data axis {self.mesh.data}")
+
+    def _init_sequence_parallel(self, cfg: TrainConfig, tower: str):
+        """The chunk-axis-split state (parallel/sequence_parallel.py) with
+        the single-device routing of the recurrences; the head runs on
+        every rank."""
+        kw = _model_apply_kwargs(cfg, self.device, inference=True)
+        self._state_fn = build_sequence_parallel_state_fn(
+            cfg, self.mesh,
+            num_chunks=(cfg.num_inputs_L1 if tower == "student"
+                        else cfg.num_inputs_to_lstm))
+        self._head_kw = {k: kw[k] for k in ("compute_dtype", "num_mixtures",
+                                             "num_hidden_units") if k in kw}
 
     def _init_int8(self, cfg: TrainConfig, params_or_module, tower: str):
         """int8 weight+activation forward: both LSTM product sites and the
@@ -135,22 +177,45 @@ class Predictor:
                             ["params_student"])
         return cls(cfg, model, tower, serve_batch, device=device, **kwargs)
 
+    def _rows(self, x: np.ndarray) -> np.ndarray:
+        """This rank's data index's rows of a padded chunk (all of them
+        without a data-parallel mesh)."""
+        if self.mesh is None or self._state_fn is not None:
+            return x
+        n = x.shape[0] // self.mesh.data
+        return x[self.mesh.data_index * n:(self.mesh.data_index + 1) * n]
+
+    def _gather_rows(self, preds: torch.Tensor) -> torch.Tensor:
+        """The data indices' rows of a chunk, in order, on every rank."""
+        if self.mesh is None or self._state_fn is not None:
+            return preds
+        parts = [torch.empty_like(preds) for _ in range(self.mesh.data)]
+        dist.all_gather(parts, preds.contiguous(), group=self.mesh.group)
+        return torch.cat(parts)
+
     @torch.inference_mode()
     def _fwd(self, features_u8: np.ndarray, num_frames: np.ndarray
              ) -> torch.Tensor:
         cfg = self.cfg
-        feats = torch.from_numpy(features_u8).to(self.device, non_blocking=True)
-        nf = torch.from_numpy(num_frames).to(self.device, non_blocking=True)
+        feats = torch.from_numpy(self._rows(features_u8)).to(self.device,
+                                                             non_blocking=True)
+        nf = torch.from_numpy(self._rows(num_frames)).to(self.device,
+                                                         non_blocking=True)
         if self.tower == "student":
             # features arrive host-strided to every_n already
             nf = student_num_frames(nf, cfg.every_n, cfg.max_num_frames)
         xs = preprocess_batch(cfg, feats, nf)
+        if self._state_fn is not None:
+            state = self._state_fn(self.model.rnn_l1, self.model.rnn_l2, xs, nf)
+            return self.model.classifier(state, **self._head_kw)["predictions"]
         if self.qparams is not None:
-            return quantized_hierarchical_forward(
+            preds = quantized_hierarchical_forward(
                 self.qparams, xs, nf, self._num_chunks, cfg.num_classes,
                 cfg.moe_num_mixtures, use_kernel=self._use_kernel)
-        forward = forward_student if self.tower == "student" else forward_teacher
-        return forward(cfg, self.model, xs, nf, inference=True)["predictions"]
+        else:
+            forward = forward_student if self.tower == "student" else forward_teacher
+            preds = forward(cfg, self.model, xs, nf, inference=True)["predictions"]
+        return self._gather_rows(preds)
 
     def predict(self, features_u8: np.ndarray, num_frames: np.ndarray
                 ) -> np.ndarray:

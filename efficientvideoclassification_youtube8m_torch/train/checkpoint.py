@@ -11,10 +11,14 @@ oldest. The reference's TF-V2 bundles (`model.ckpt-N.index` +
 train_dir trains on, validates, evaluates and serves without a
 conversion step. Orbax directories are not ported and raise.
 
-Under a process group the state is replicated on every rank (the JAX
-rule for msgpack checkpoints: a data-parallel state), so the master alone
-writes the file and the pointer; every rank calls the savers, which agree
-on the outcome of the previous asynchronous write before they go on.
+Under a process group every rank calls the savers: a state sharded for
+tensor parallelism is gathered over each model group first (a file
+written under model=2 is byte-equal to one written under model=1 from
+the same state), then the master alone writes the file and the pointer,
+and the ranks agree on the outcome of the previous asynchronous write
+before they go on. A restore cuts each whole leaf to the rank's columns
+(`train.state.load_state_tree`), after the TF-V2 importer's MoE column
+permutation for a reference bundle.
 """
 
 from __future__ import annotations
@@ -81,16 +85,18 @@ def save_checkpoint(train_dir: str, state: Any, step: int,
     """Write `model.ckpt-<step>.msgpack` (through `.tmp` and `os.replace`)
     and update the pointer file. `state` is a DistillState/StudentState
     or a tree of the codec's types and tensors. The reference keeps only
-    the latest (`Saver(max_to_keep=1)`, train.py:651). Only the master
-    writes; the other ranks return the path."""
+    the latest (`Saver(max_to_keep=1)`, train.py:651). Every rank gathers
+    a sharded state; only the master writes, the other ranks return the
+    path."""
     _check_backend(backend)
     path = os.path.join(train_dir, f"{_PREFIX}-{step}.msgpack")
+    tree = _tree(state)
     if not distributed.is_master():
         return path
     os.makedirs(train_dir, exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        msgpack_io.dump(_tree(state), f, default=_to_numpy)
+        msgpack_io.dump(tree, f, default=_to_numpy)
     os.replace(tmp, path)
     _update_pointer(train_dir, path, max_to_keep)
     return path
@@ -163,6 +169,7 @@ class AsyncCheckpointSaver:
     def save(self, train_dir: str, state: Any, step: int,
              max_to_keep: int = 1, backend: str = "msgpack") -> None:
         _check_backend(backend)
+        tree = _tree(state)  # a sharded state: every rank gathers
         if distributed.world_size() > 1:
             self._thread, thread = None, self._thread
             if thread is not None:
@@ -178,9 +185,9 @@ class AsyncCheckpointSaver:
                 return
         self.wait()
         if not self.enabled:
-            save_checkpoint(train_dir, state, step, max_to_keep=max_to_keep)
+            save_checkpoint(train_dir, tree, step, max_to_keep=max_to_keep)
             return
-        snapshot = self._snapshot(_tree(state))
+        snapshot = self._snapshot(tree)
         copied = None
         if torch.cuda.is_initialized():
             # covers the snapshot's copies from the card, if any: they were

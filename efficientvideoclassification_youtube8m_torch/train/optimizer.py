@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Union
 
 import torch
+import torch.distributed as dist
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -47,15 +48,26 @@ def exponential_decay(
     return schedule
 
 
-def clip_grads_per_variable(grads: Tensors, max_norm: float) -> Tensors:
-    """slim.learning.clip_gradient_norms: per-tensor clip_by_norm."""
+def clip_grads_per_variable(grads: Tensors, max_norm: float,
+                            shards=None) -> Tensors:
+    """slim.learning.clip_gradient_norms: per-tensor clip_by_norm. Under
+    tensor parallelism (`shards`, the tower's `ops.collectives.ModelShards`)
+    a gradient that holds only this rank's columns takes the norm of the
+    whole tensor: its squares are summed over the model group, in one
+    all-reduce for all such gradients."""
+    squares = {name: torch.sum(torch.square(g)) for name, g in grads.items()}
+    sharded = [n for n in grads if shards is not None and n in shards.names]
+    if sharded:
+        summed = torch.stack([squares[n] for n in sharded])
+        dist.all_reduce(summed, group=shards.group)
+        squares.update(zip(sharded, summed.unbind()))
 
-    def clip(g):
-        norm = torch.sqrt(torch.sum(torch.square(g)))
+    def clip(g, square):
+        norm = torch.sqrt(square)
         return g * torch.clamp(max_norm / torch.clamp(norm, min=1e-30),
                                max=1.0)
 
-    return {name: clip(g) for name, g in grads.items()}
+    return {name: clip(g, squares[name]) for name, g in grads.items()}
 
 
 def _zeros(params: Tensors) -> Tensors:
@@ -141,9 +153,11 @@ class Optimizer:
     """(init, update) pair taking the learning rate as a per-call input.
 
     `init(params)` returns the slots; `update(grads, state, params,
-    learning_rate)` clips the gradients (per variable, when
-    `clip_gradient_norm` > 0), then updates `params` and the slots of
-    `state` in place under ``torch.no_grad()``, and returns `state`."""
+    learning_rate, shards)` clips the gradients (per variable, when
+    `clip_gradient_norm` > 0; `shards` names the tensor-parallel ones),
+    then updates `params` and the slots of `state` in place under
+    ``torch.no_grad()`` (elementwise, so a shard updates on its own), and
+    returns `state`."""
 
     def __init__(self, init_fn, update_fn, clip_gradient_norm: float = 0.0):
         self._init = init_fn
@@ -155,11 +169,12 @@ class Optimizer:
             return self._init(params)
 
     def update(self, grads: Tensors, state: dict, params: Tensors,
-               learning_rate) -> dict:
+               learning_rate, shards=None) -> dict:
         lr = torch.as_tensor(learning_rate, dtype=torch.float32)
         with torch.no_grad():
             if self.clip_gradient_norm > 0:
-                grads = clip_grads_per_variable(grads, self.clip_gradient_norm)
+                grads = clip_grads_per_variable(grads, self.clip_gradient_norm,
+                                                shards)
             return self._update(grads, state, params, lr)
 
 

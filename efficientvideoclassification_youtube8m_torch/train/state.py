@@ -19,6 +19,7 @@ from torch import nn
 
 from efficientvideoclassification_youtube8m_torch.models import get_model
 from efficientvideoclassification_youtube8m_torch.ops import prng
+from efficientvideoclassification_youtube8m_torch.ops.collectives import gather_leaf
 from efficientvideoclassification_youtube8m_torch.train.optimizer import Optimizer
 from efficientvideoclassification_youtube8m_torch.weights import load_jax_params
 from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
@@ -134,25 +135,37 @@ def _nest(named) -> dict:
     return tree
 
 
-def _slots_tree(slots: dict) -> dict:
+def _slots_tree(slots: dict, shards=None) -> dict:
     tree = {key: (np.asarray(value, np.int32) if key == "count"
-                  else _nest(value.items()))
+                  else _nest((n, gather_leaf(t, shards, n))
+                             for n, t in value.items()))
             for key, value in slots.items()}
     # the JAX Momentum and Adagrad slots are the bare accumulator tree
     return tree["accum"] if set(tree) == {"accum"} else tree
 
 
-def state_tree(state) -> dict:
+def _shards(state, tower: str, gather: bool):
+    return getattr(getattr(state, tower), "model_shards", None) if gather else None
+
+
+def state_tree(state, gather: bool = True) -> dict:
     """`state` in the JAX state-dict layout: parameters and optimizer
     slots as the state's own tensors (detached, not copied; the writer
     converts them to float32 host arrays), the scalars as 0-d numpy
     arrays of the JAX dtypes. Parameter names are `model.state_dict()`'s,
-    as in `weights.to_jax_params`."""
+    as in `weights.to_jax_params`.
+
+    A tower sharded for tensor parallelism (`parallel.mesh.shard_state`)
+    gives its whole tensors, gathered over the model group (a collective
+    of every rank of the group), unless `gather` is False: then this
+    rank's columns."""
     towers = _TOWERS[type(state)]
-    tree = {f"params_{t}": _nest((name, value.detach()) for name, value
-                                 in getattr(state, t).state_dict().items())
-            for t in towers}
-    tree.update({f"opt_{t}": _slots_tree(getattr(state, f"opt_{t}"))
+    tree = {f"params_{t}": _nest(
+        (name, gather_leaf(value.detach(), _shards(state, t, gather), name))
+        for name, value in getattr(state, t).state_dict().items())
+        for t in towers}
+    tree.update({f"opt_{t}": _slots_tree(getattr(state, f"opt_{t}"),
+                                         _shards(state, t, gather))
                  for t in towers})
     tree["global_step"] = np.asarray(state.global_step, np.int32)
     tree["dropout_keep_prob"] = np.asarray(state.dropout_keep_prob, np.float32)
@@ -187,8 +200,10 @@ def load_state_tree(state, tree: dict, fields: Optional[Sequence[str]] = None):
     those top-level fields (default: all of the state's); other fields of
     the tree are ignored, as flax ignores them. Everything is checked
     before anything is copied: a missing field or name raises KeyError, a
-    structure or shape mismatch ValueError."""
-    want = state_tree(state)
+    structure or shape mismatch ValueError. A tower sharded for tensor
+    parallelism takes this rank's columns of the whole leaves."""
+    want = state_tree(state, gather=False)
+    tree = _local_tree(state, tree)
     fields = list(want) if fields is None else list(fields)
     for field in fields:
         if field not in want:
@@ -207,6 +222,34 @@ def load_state_tree(state, tree: dict, fields: Optional[Sequence[str]] = None):
             else:
                 state.dropout_keep_prob = float(tree[field])
     return state
+
+
+def _local_leaves(tree: Any, shards, prefix: str = "") -> Any:
+    """`tree` with each leaf whose dotted path is a sharded name cut to
+    this rank's columns."""
+    if isinstance(tree, dict):
+        return {k: _local_leaves(v, shards, f"{prefix}{k}.") for k, v in tree.items()}
+    return shards.local(np.asarray(tree)) if prefix[:-1] in shards.names else tree
+
+
+def _local_tree(state, tree: dict) -> dict:
+    """A whole JAX state tree cut to the columns of `state`'s sharded
+    towers: their parameters and optimizer slots."""
+    tree = dict(tree)
+    for tower in _TOWERS[type(state)]:
+        shards = _shards(state, tower, True)
+        if shards is None:
+            continue
+        if f"params_{tower}" in tree:
+            tree[f"params_{tower}"] = _local_leaves(tree[f"params_{tower}"], shards)
+        slots, name = getattr(state, f"opt_{tower}"), f"opt_{tower}"
+        if name in tree and isinstance(tree[name], dict):
+            if set(slots) == {"accum"}:
+                tree[name] = _local_leaves(tree[name], shards)
+            else:
+                tree[name] = {k: _local_leaves(v, shards) if k != "count" else v
+                              for k, v in tree[name].items()}
+    return tree
 
 
 def _load_slots(slots: dict, tree: dict) -> None:

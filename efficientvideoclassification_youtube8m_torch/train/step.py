@@ -13,17 +13,24 @@ Faithful quirks (cfg.faithful_quirks=True), as in the JAX package:
   * L_PRED sums (not means) over the batch (train.py:402).
 
 The steps update the state in place (the modules' parameters and the
-optimizer slots) and return it with their metrics. Given a process
-`group` (the JAX `axis_name`), the train steps are per-device programs of
-a data-parallel step (parallel/sharded_step.py): each rank takes its
-slice of the global batch, and one summed all-reduce of the gradients
-gives every rank the global-batch gradient.
+optimizer slots) and return it with their metrics. Given a `mesh`
+(parallel/mesh.py; its data group is the JAX `axis_name`), the train
+steps are per-device programs of a data-parallel step
+(parallel/sharded_step.py): each rank takes its data index's slice of the
+global batch, and one summed all-reduce of the gradients over the data
+group gives every rank the global-batch gradient. On a mesh with
+model > 1 the towers hold their columns (`parallel.mesh.shard_state`):
+the forwards gather what they use (`ops.collectives.apply_gathered`), the
+clip sums the sharded gradients' squares over the model group, and the
+random draws are those of the JAX package's GSPMD program (no rank
+folded in; the global batch's draws, sliced to the rank's rows).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -40,13 +47,14 @@ from efficientvideoclassification_youtube8m_torch.ops.preprocess import (
     student_num_frames,
     uniform_subsample,
 )
-from efficientvideoclassification_youtube8m_torch.ops.quantize import (
-    quantized_hierarchical_forward,
-)
-from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
+from efficientvideoclassification_youtube8m_torch.ops.collectives import (
     all_reduce_grads,
+    apply_gathered,
     mean_tensors,
     reduce_scalars,
+)
+from efficientvideoclassification_youtube8m_torch.ops.quantize import (
+    quantized_hierarchical_forward,
 )
 from efficientvideoclassification_youtube8m_torch.train.optimizer import (
     Optimizer,
@@ -58,6 +66,9 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
     params_of,
 )
 from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
+
+if TYPE_CHECKING:  # the parallel layer imports this module
+    from efficientvideoclassification_youtube8m_torch.parallel.mesh import Mesh
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -159,8 +170,8 @@ def forward_teacher(cfg: TrainConfig, model, model_input: torch.Tensor,
     `labels` feed a head's own loss, `rng` its dropout (and DBoF's frame
     sampling); `bn_group` syncs DBoF's batch moments across ranks."""
     _check_model(cfg, model)
-    return model(
-        model_input, num_frames, num_chunks=cfg.num_inputs_to_lstm,
+    return apply_gathered(
+        model, model_input, num_frames, num_chunks=cfg.num_inputs_to_lstm,
         labels=labels, dropout_keep_prob=dropout_keep_prob, rng=rng,
         **_model_apply_kwargs(cfg, model_input.device, inference,
                               kernel_train_mode, bn_group=bn_group),
@@ -176,8 +187,8 @@ def forward_student(cfg: TrainConfig, model, model_input_student: torch.Tensor,
     """`create_model_inference`: the same architecture on the subsampled
     frames, with `cfg.num_inputs_L1` chunks."""
     _check_model(cfg, model)
-    return model(
-        model_input_student, num_frames_stud, num_chunks=cfg.num_inputs_L1,
+    return apply_gathered(
+        model, model_input_student, num_frames_stud, num_chunks=cfg.num_inputs_L1,
         labels=labels, dropout_keep_prob=dropout_keep_prob, rng=rng,
         **_model_apply_kwargs(cfg, model_input_student.device, inference,
                               kernel_train_mode, kernel_override, bn_group),
@@ -213,8 +224,8 @@ def forward_video_level(cfg: TrainConfig, model, model_input: torch.Tensor,
         kw["num_mixtures"] = cfg.moe_num_mixtures
     else:
         kw["num_hidden_units"] = cfg.num_hidden_units
-    return model(model_input, labels=labels,
-                 dropout_keep_prob=dropout_keep_prob, rng=rng, **kw)
+    return apply_gathered(model, model_input, labels=labels,
+                          dropout_keep_prob=dropout_keep_prob, rng=rng, **kw)
 
 
 def preprocess_aggregated(features: torch.Tensor) -> torch.Tensor:
@@ -235,15 +246,25 @@ def model_label_loss(out, labels, label_loss_fn: Callable) -> torch.Tensor:
     return torch.sum(loss) if loss.dim() > 0 else loss
 
 
+def _shards(module):
+    """The module's tensor-parallel layout (`parallel.mesh.shard_module`),
+    None when it is whole."""
+    return getattr(module, "model_shards", None)
+
+
 def _merge_updated_stats(model, updated: Optional[Tensors]) -> None:
     """Write the statistics the forward computed (DBoF's batch-norm moving
     averages, "updated_stats") over their parameters, after the optimizer
     update: slim's UPDATE_OPS around the train op (train.py:312-318). The
-    statistics got a zero gradient, so the update left them alone."""
+    statistics got a zero gradient, so the update left them alone. A
+    sharded statistic takes this rank's columns of the whole one."""
     if not updated:
         return
+    shards = _shards(model)
     with torch.no_grad():
         for name, value in updated.items():
+            if shards is not None and name in shards.names:
+                value = shards.local(value)
             model.get_parameter(name).copy_(value)
 
 
@@ -307,28 +328,63 @@ def step_rng(cfg: TrainConfig, global_step: int, group=None) -> prng.Key:
     return key if group is None else prng.fold_in(key, dist.get_rank(group))
 
 
+class _Layout:
+    """What a train step reads of its mesh: the data group (None without
+    one), tensor parallelism, and the rule of its random draws and of
+    DBoF's batch moments."""
+
+    def __init__(self, cfg: TrainConfig, mesh: Optional[Mesh]):
+        self.mesh = mesh
+        self.tp = mesh is not None and mesh.model > 1
+        self.group = None if mesh is None else mesh.group
+        if self.tp:
+            # a data group of one rank has nothing to reduce; JAX runs
+            # tensor parallelism as one GSPMD program over the global
+            # batch, so its batch moments are the global batch's whatever
+            # --sync_batch_norm says
+            self.group = self.group if mesh.data > 1 else None
+            self.bn_group = self.group
+        else:
+            self.bn_group = self.group if cfg.sync_batch_norm else None
+
+    def rng(self, cfg: TrainConfig, global_step: int) -> prng.Key:
+        """`step_rng`; under tensor parallelism no rank is folded in (the
+        JAX GSPMD step folds no device index, train/step.py:430-434)."""
+        return step_rng(cfg, global_step, None if self.tp else self.group)
+
+    def draws(self):
+        """Under tensor parallelism with data > 1, the rank's rows of the
+        global batch's draws."""
+        if self.tp and self.mesh.data > 1:
+            return prng.global_batch_rows(self.mesh.data_index, self.mesh.data)
+        return contextlib.nullcontext()
+
+
 def _distill(cfg: TrainConfig, state: DistillState, features_u8, labels,
-             num_frames, kernel_train_mode: Optional[str] = None, group=None):
+             num_frames, kernel_train_mode: Optional[str] = None,
+             mesh: Optional[Mesh] = None):
     label_loss_fn = resolve_label_loss(cfg)
+    layout = _Layout(cfg, mesh)
+    group = layout.group
     model_input = preprocess_batch(cfg, features_u8, num_frames)
     model_input_s = uniform_subsample(model_input, cfg.every_n)
     nf_student = student_num_frames(num_frames, cfg.every_n, cfg.max_num_frames)
-    rng_t, rng_s = prng.split(step_rng(cfg, state.global_step, group))
-    bn_group = group if cfg.sync_batch_norm else None
-    out_t = forward_teacher(cfg, state.teacher, model_input, num_frames, labels,
-                            dropout_keep_prob=state.dropout_keep_prob, rng=rng_t,
-                            kernel_train_mode=kernel_train_mode,
-                            bn_group=bn_group)
-    out_s = forward_student(cfg, state.student, model_input_s, nf_student, labels,
-                            dropout_keep_prob=state.dropout_keep_prob, rng=rng_s,
-                            kernel_train_mode=kernel_train_mode,
-                            bn_group=bn_group)
+    rng_t, rng_s = prng.split(layout.rng(cfg, state.global_step))
+    with layout.draws():
+        out_t = forward_teacher(cfg, state.teacher, model_input, num_frames,
+                                labels, dropout_keep_prob=state.dropout_keep_prob,
+                                rng=rng_t, kernel_train_mode=kernel_train_mode,
+                                bn_group=layout.bn_group)
+        out_s = forward_student(cfg, state.student, model_input_s, nf_student,
+                                labels, dropout_keep_prob=state.dropout_keep_prob,
+                                rng=rng_s, kernel_train_mode=kernel_train_mode,
+                                bn_group=layout.bn_group)
     ls = _distill_losses(cfg, out_t, out_s, labels, label_loss_fn)
     total = ls["teacher_final_loss"] + ls["total_student_loss"]
     if group is not None:
-        # the batch-mean terms (CE, L_REP) and the l2 term / n, so that the
-        # ranks' summed gradients are the global batch's; the batch-SUM
-        # L_PRED stays unscaled
+        # the batch-mean terms (CE, L_REP) and the l2 term / n (n the data
+        # size), so that the ranks' summed gradients are the global
+        # batch's; the batch-SUM L_PRED stays unscaled
         total = (total - ls["pred_loss"]) / dist.get_world_size(group) + ls["pred_loss"]
     g_t, g_s = param_grads(total, state.teacher, state.student)
     ls = {name: value.detach() for name, value in ls.items()}
@@ -339,16 +395,18 @@ def _distill(cfg: TrainConfig, state: DistillState, features_u8, labels,
 def distill_loss_and_grads(cfg: TrainConfig, state: DistillState,
                            features_u8: torch.Tensor, labels: torch.Tensor,
                            num_frames: torch.Tensor,
-                           kernel_train_mode: Optional[str] = None):
+                           kernel_train_mode: Optional[str] = None,
+                           mesh: Optional[Mesh] = None):
     """Both towers forward and ONE backward of ``teacher_final +
     total_student`` (the teacher gets no gradient from the student terms:
     L_REP and L_PRED detach it), with the dropout keys of
     `state.global_step` (`step_rng`, split into teacher and student).
     Returns (the eight loss scalars, detached; the teacher's predictions,
     detached; the teacher's and the student's gradients, dicts by
-    parameter name)."""
+    parameter name: under tensor parallelism (`mesh`), this rank's
+    columns of the sharded ones, not yet reduced over the data group)."""
     return _distill(cfg, state, features_u8, labels, num_frames,
-                    kernel_train_mode)[:4]
+                    kernel_train_mode, mesh)[:4]
 
 
 def _schedule(cfg: TrainConfig):
@@ -370,7 +428,7 @@ def reduce_distill_losses(ls: Tensors, group) -> Tensors:
 def build_distill_train_step(cfg: TrainConfig, optimizer: Optimizer,
                              top_k: int = 20,
                              kernel_train_mode: Optional[str] = None,
-                             group=None):
+                             mesh: Optional[Mesh] = None):
     """Returns step(state, features_u8, labels, num_frames) -> (state,
     metrics): `distill_loss_and_grads`, then one optimizer update per
     tower (gradients clipped per variable), both at the learning rate of
@@ -379,30 +437,34 @@ def build_distill_train_step(cfg: TrainConfig, optimizer: Optimizer,
     the new global step, and the teacher's top-k and exact PERR (the
     reference's per-step log covers the teacher only).
 
-    With a process `group`, the step is one rank's part of a
+    With a `mesh` (a process group), the step is one rank's part of a
     data-parallel step (the JAX step with `axis_name`): the batch-mean
-    loss terms and the l2 term are scaled by 1/n, the batch-sum L_PRED is
-    not, one bucketed all-reduce sums the gradients, and the clipped
-    TF-Adam update then runs identically on every rank. The reported
-    scalars are averaged over the ranks (L_PRED summed), and DBoF's
-    moving statistics averaged (its batch moments too, inside the
-    forward, with `cfg.sync_batch_norm`). The top-k and PERR are this
-    rank's rows."""
+    loss terms and the l2 term are scaled by 1/n (n the data size), the
+    batch-sum L_PRED is not, one bucketed all-reduce over the data group
+    sums the gradients, and the clipped TF-Adam update then runs
+    identically on every rank of a data group. The reported scalars are
+    averaged over the data group (L_PRED summed), and DBoF's moving
+    statistics averaged (its batch moments too, inside the forward, with
+    `cfg.sync_batch_norm`, or always under tensor parallelism). The top-k
+    and PERR are this rank's rows."""
     schedule = _schedule(cfg)
     step_increment = 2 if cfg.faithful_quirks else 1
     resolve_label_loss(cfg)  # a missing counts file fails here, not mid-run
+    group = _Layout(cfg, mesh).group
 
     def step(state: DistillState, features_u8, labels, num_frames):
         ls, preds_t, g_t, g_s, (upd_t, upd_s) = _distill(
             cfg, state, features_u8, labels, num_frames, kernel_train_mode,
-            group)
+            mesh)
         if group is not None:
             all_reduce_grads([g_t, g_s], group)
             ls = reduce_distill_losses(ls, group)
             upd_t, upd_s = mean_tensors(upd_t, group), mean_tensors(upd_s, group)
         lr = schedule(state.global_step)
-        optimizer.update(g_t, state.opt_teacher, params_of(state.teacher), lr)
-        optimizer.update(g_s, state.opt_student, params_of(state.student), lr)
+        optimizer.update(g_t, state.opt_teacher, params_of(state.teacher), lr,
+                         _shards(state.teacher))
+        optimizer.update(g_s, state.opt_student, params_of(state.student), lr,
+                         _shards(state.student))
         _merge_updated_stats(state.teacher, upd_t)
         _merge_updated_stats(state.student, upd_s)
         state.global_step += step_increment
@@ -425,7 +487,7 @@ def build_finetune_step(cfg: TrainConfig, optimizer: Optimizer,
                         top_k: int = 20, host_subsampled: bool = False,
                         aggregated: bool = False,
                         kernel_train_mode: Optional[str] = None,
-                        group=None):
+                        mesh: Optional[Mesh] = None):
     """Student-only training: CE + reg (train_finetune.py:263-331).
     Returns step(state, features_u8, labels, num_frames) -> (state,
     metrics); the global step advances by 1. The dropout key (and DBoF's
@@ -441,29 +503,33 @@ def build_finetune_step(cfg: TrainConfig, optimizer: Optimizer,
     (`forward_video_level`); `num_frames` is the reader's all-ones
     placeholder and is ignored.
 
-    With a process `group`, one rank's part of a data-parallel step, as
-    in `build_distill_train_step`: both loss terms are scaled by 1/n and
-    the gradients summed over the ranks."""
+    With a `mesh`, one rank's part of a data-parallel (and
+    tensor-parallel) step, as in `build_distill_train_step`: both loss
+    terms are scaled by 1/n and the gradients summed over the data
+    group."""
     schedule = _schedule(cfg)
     label_loss_fn = resolve_label_loss(cfg)
-    bn_group = group if cfg.sync_batch_norm else None
+    layout = _Layout(cfg, mesh)
+    group = layout.group
 
     def step(state: StudentState, features_u8, labels, num_frames):
-        rng = step_rng(cfg, state.global_step, group)
-        if aggregated:
-            out_s = forward_video_level(
-                cfg, state.student, preprocess_aggregated(features_u8), labels,
-                dropout_keep_prob=state.dropout_keep_prob, rng=rng)
-        else:
-            nf_student = student_num_frames(num_frames, cfg.every_n,
-                                            cfg.max_num_frames)
-            sub = (features_u8 if host_subsampled
-                   else uniform_subsample(features_u8, cfg.every_n))
-            model_input_s = preprocess_batch(cfg, sub, nf_student)
-            out_s = forward_student(cfg, state.student, model_input_s, nf_student,
-                                    labels, dropout_keep_prob=state.dropout_keep_prob,
-                                    rng=rng, kernel_train_mode=kernel_train_mode,
-                                    bn_group=bn_group)
+        rng = layout.rng(cfg, state.global_step)
+        with layout.draws():
+            if aggregated:
+                out_s = forward_video_level(
+                    cfg, state.student, preprocess_aggregated(features_u8),
+                    labels, dropout_keep_prob=state.dropout_keep_prob, rng=rng)
+            else:
+                nf_student = student_num_frames(num_frames, cfg.every_n,
+                                                cfg.max_num_frames)
+                sub = (features_u8 if host_subsampled
+                       else uniform_subsample(features_u8, cfg.every_n))
+                model_input_s = preprocess_batch(cfg, sub, nf_student)
+                out_s = forward_student(
+                    cfg, state.student, model_input_s, nf_student, labels,
+                    dropout_keep_prob=state.dropout_keep_prob, rng=rng,
+                    kernel_train_mode=kernel_train_mode,
+                    bn_group=layout.bn_group)
         label_loss = model_label_loss(out_s, labels, label_loss_fn)
         reg = out_s["regularization_loss"]
         total = cfg.regularization_penalty * reg + label_loss
@@ -478,7 +544,8 @@ def build_finetune_step(cfg: TrainConfig, optimizer: Optimizer,
             scalars = reduce_scalars(scalars, group)
             updated = mean_tensors(updated, group)
         lr = schedule(state.global_step)
-        optimizer.update(g_s, state.opt_student, params_of(state.student), lr)
+        optimizer.update(g_s, state.opt_student, params_of(state.student), lr,
+                         _shards(state.student))
         _merge_updated_stats(state.student, updated)
         state.global_step += 1
         preds = out_s["predictions"].detach()

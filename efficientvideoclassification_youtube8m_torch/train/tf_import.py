@@ -280,7 +280,7 @@ def _read_tree(prefix: str, state, ordinals: Dict[str, int],
     """The fields of the JAX state tree that the bundle holds, among
     `fields` (default: all of the state's)."""
     reader = TFCheckpointReader(prefix)
-    template = state_tree(state)
+    template = state_tree(state)  # whole leaves, for a sharded state too
     fields = set(template if fields is None else fields)
     tree: dict = {}
     for tower, ordinal in ordinals.items():
@@ -322,8 +322,8 @@ def read_tf_tree(prefix: str, state, fields: Optional[Sequence[str]] = None
 
 
 def _load(state, tree: dict, fields: Optional[Sequence[str]]):
-    fields = [f for f in (state_tree(state) if fields is None else fields)
-              if f in tree]
+    fields = [f for f in (state_tree(state, gather=False) if fields is None
+                          else fields) if f in tree]
     return load_state_tree(state, tree, fields=fields)
 
 

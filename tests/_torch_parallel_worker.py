@@ -152,7 +152,7 @@ def run_distill(rank, dtype, tag):
     orig = float64_forward() if dtype == torch.float64 else None
     try:
         opt, state = distill_state(TINY, dtype)
-        step = build_sharded_distill_step(TINY, opt, create_mesh(), top_k=TOP_K)
+        step = build_sharded_distill_step(TINY, opt, create_mesh(device="cpu"), top_k=TOP_K)
         out = {}
         for i, seed in enumerate(DISTILL_SEEDS):
             state, metrics = step(state, *rows_of(batch(TINY, seed), rank))
@@ -169,7 +169,7 @@ def run_dbof(rank, sync):
     tag = "dbof_sync" if sync else "dbof_unsynced"
     opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
     state = student_state_from_distill(init_distill_state(cfg, opt), opt)
-    step = build_sharded_finetune_step(cfg, opt, create_mesh(), top_k=TOP_K)
+    step = build_sharded_finetune_step(cfg, opt, create_mesh(device="cpu"), top_k=TOP_K)
     state, metrics = step(state, *rows_of(batch(cfg, DBOF_SEED), rank))
     out = metrics_of(metrics, f"{tag}/m")
     out.update({f"{tag}/{k}": v for k, v in
@@ -201,7 +201,7 @@ def run_cli(out_dir, data_dir):
 def main():
     out_dir, data_dir = sys.argv[1:3]
     torch.set_num_threads(1)
-    distributed.initialize(timeout=datetime.timedelta(seconds=90))
+    distributed.initialize(device="cpu", timeout=datetime.timedelta(seconds=90))
     rank = distributed.rank()
     assert distributed.world_size() == WORLD, distributed.world_size()
     # tests/test_parallel.py's synced-BN comparison pins DBoF's frame

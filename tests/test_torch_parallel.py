@@ -33,6 +33,7 @@ from efficientvideoclassification_youtube8m_torch.cli import flags
 from efficientvideoclassification_youtube8m_torch.cli import validate as validate_cli
 from efficientvideoclassification_youtube8m_torch.data import write_synthetic_frame_shard
 from efficientvideoclassification_youtube8m_torch.metrics import EvaluationMetrics
+from efficientvideoclassification_youtube8m_torch.ops import collectives
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
 from efficientvideoclassification_youtube8m_torch.parallel import mesh as tmesh
 from efficientvideoclassification_youtube8m_torch.parallel import sharded_step
@@ -327,10 +328,11 @@ def test_single_process_helpers_pass_through():
     assert pad == jpad == 2
     for k in want:
         np.testing.assert_array_equal(rows[k], want[k])
-    mesh = tmesh.create_mesh()
+    mesh = tmesh.create_mesh(device="cpu")
     assert mesh.group is None and mesh.shape == {"data": 1, "model": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the tensor-parallel"):
-        tmesh.create_mesh(model=2)
+    # the JAX create_mesh's refusal on one device
+    with pytest.raises(ValueError, match="not divisible by model=2"):
+        tmesh.create_mesh(model=2, device="cpu")
     # without a group the validate builder is the plain step
     assert sharded_step.build_sharded_validate_step(worker.TINY, mesh).__name__ == "step"
 
@@ -338,7 +340,7 @@ def test_single_process_helpers_pass_through():
 def test_buckets_keep_order_dtype_and_limit():
     ts = [torch.zeros(10), torch.zeros(30), torch.zeros(5, dtype=torch.float64),
           torch.zeros(100), torch.zeros(3)]
-    buckets = tmesh._buckets(ts, limit=160)
+    buckets = collectives._buckets(ts, limit=160)
     assert [[t.numel() for t in b] for b in buckets] == [[10, 30], [5], [100], [3]]
     assert [t for b in buckets for t in b] == ts
 
@@ -353,6 +355,7 @@ def test_tf_config_start_up_times_out_instead_of_waiting(monkeypatch):
                            '"worker": ["localhost:1"]}, "task": {"type": "%s"}}'
                            % (port, task))
         with pytest.raises(torch.distributed.DistError):
-            distributed.initialize(timeout=datetime.timedelta(seconds=2))
+            distributed.initialize(device="cpu",
+                                   timeout=datetime.timedelta(seconds=2))
         assert not torch.distributed.is_initialized()
 

@@ -112,10 +112,12 @@ def test_module_from_seeded_init(tree):
 
 
 def test_unsupported_options_raise(tree, tmp_path):
-    for kwargs in ({"quantize": "int8", "mesh": object()}, {"mesh": object()},
-                   {"sequence_parallel": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Predictor(CFG, tree, device="cpu", **kwargs)
+    # the JAX Predictor's refusals over a mesh (serving.py:147-149, :208-211)
+    with pytest.raises(ValueError, match="int8.*sequence_parallel"):
+        Predictor(CFG, tree, device="cpu", quantize="int8", sequence_parallel=True)
+    with pytest.raises(ValueError, match="requires HierarchicalLstmModel"):
+        Predictor(CFG.replace(model="DbofModel"), tree, device="cpu",
+                  sequence_parallel=True)
     (tmp_path / "model.ckpt-5").mkdir()  # an orbax checkpoint directory
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Predictor.from_checkpoint(str(tmp_path), CFG, device="cpu")

@@ -131,9 +131,25 @@ kernel's device time alone, the replay of a CUDA graph of one call
      (phase 6's bars on the gradients of an SGD step), and eval rows
      gathered over the ranks against one process's rows; (c) the Chrome
      trace phase 6 wrote through utils/profiling.trace names
-     lstm_step_kernel and lstm_bwd_step_kernel. Last, no module of jax,
-     flax, msgpack or the JAX package is loaded and nothing was written
-     into the JAX package's directory.
+     lstm_step_kernel and lstm_bwd_step_kernel;
+ 15. gloo groups of ranks sharing the card (`--mesh-worker`): (a)
+     data- and sequence-parallel Predictors against one process; (b)
+     tensor-parallel steps, cli.train and cli.eval at --model_parallelism 2
+     against one process;
+ 16. (a) `--steps_per_dispatch 4` against 1 on 9b's checkpoint and its 21
+     batches of 256 (the last stack padded with dummy batches): cli.eval
+     bf16 and int8 and cli.validate (every epoch metric bit-equal but
+     avg_loss, within 1e-6 relative) and cli.infer (device-top-k rows
+     within 1e-5 of the host ranking's), each with its own rate line and
+     kernel launches; (b) cli.train --checkpoint_format orbax for 2 steps,
+     its directory restored into a card state bit for bit as a msgpack
+     save and restore of the same state, with save and restore GiB/s;
+     cli.eval, inspect_checkpoint and Predictor.from_checkpoint over the
+     directory against the msgpack file; the committed JAX-written orbax
+     directories (tests/fixtures/orbax_jax) read bit for bit through the
+     card's libzstd. Last, no module of jax, flax, msgpack or the JAX
+     package is loaded and nothing was written into the JAX package's
+     directory.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is {"kernels": [...]}; the last is {"ok": true, "device": {...}}. With no
@@ -212,7 +228,12 @@ from efficientvideoclassification_youtube8m_torch.serving import (
     TrainConfig,
     init_model,
 )
-from efficientvideoclassification_youtube8m_torch.train import checkpoint, msgpack_io, tf_export
+from efficientvideoclassification_youtube8m_torch.train import (
+    checkpoint,
+    msgpack_io,
+    orbax_io,
+    tf_export,
+)
 from efficientvideoclassification_youtube8m_torch.train.optimizer import (
     make_optimizer,
 )
@@ -3030,6 +3051,220 @@ def phase_mesh(root: str, smi: str) -> dict:
     return launches
 
 
+# ----------------------- phase 16: K-stacked dispatch and orbax checkpoints
+
+# --steps_per_dispatch K against K = 1 on 9b's 21 batches of 256 (a partial
+# last stack: 5 stacks of 4 and one of 1, padded with 3 dummy batches),
+# both in one video order (--deterministic_input: racing readers batch
+# the videos otherwise from run to run). Each batch runs in the same
+# kernels at the same shapes either way, so the rank metrics and every AP
+# are bit-equal; the mean loss may sum in another order (the JAX CLI
+# tests' ulp allowance, tests/test_pipeline_e2e.py).
+STACK_K = 4
+STACK_LOSS_RTOL = 1e-6
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "orbax_jax")
+
+
+def stacked_runs(tag, main_fn, logger_name, argv_of, per_batch, batches, pattern):
+    """`main_fn(argv_of(k))` at K = 1 and at STACK_K over the same shards,
+    each with its kernel launches (`per_batch` launches of a batch, dummy
+    batches included) and the matches of `pattern` in its own log lines.
+    Returns {k: (result, counts, matches)}."""
+    stacks = math.ceil(batches / STACK_K)
+    out = {}
+    for k, count in ((1, batches), (STACK_K, stacks * STACK_K)):
+        with LogCapture(logger_name, pattern) as capture:
+            result, _, counts = run_binary(
+                f"16a {tag} --steps_per_dispatch {k}", main_fn,
+                argv_of(k) + ["--steps_per_dispatch", str(k)],
+                {name: n * count for name, n in per_batch.items()}, phase="16")
+        out[k] = (result, counts, capture.matches)
+    return out
+
+
+def check_stacked_epoch(tag, runs) -> float:
+    """Every epoch metric of K and 1 bit-equal but avg_loss, which must
+    agree to STACK_LOSS_RTOL; returns avg_loss's relative difference."""
+    got, want = runs[STACK_K][0], runs[1][0]
+    rest = [k for k in want if k != "avg_loss"]
+    if sorted(got) != sorted(want) or not same_epoch(
+            {k: got[k] for k in rest}, {k: want[k] for k in rest}):
+        differ = [k for k in rest if not same_epoch({k: got[k]}, {k: want[k]})]
+        raise AssertionError(f"{tag}: K={STACK_K} epoch metrics {differ} differ "
+                             "from K=1")
+    rel = abs(got["avg_loss"] - want["avg_loss"]) / abs(want["avg_loss"])
+    if rel > STACK_LOSS_RTOL:
+        raise AssertionError(f"{tag}: avg_loss {got['avg_loss']} against "
+                             f"{want['avg_loss']} ({rel:.3g} relative)")
+    return rel
+
+
+def phase_stacked(root: str, smi: str) -> dict:
+    """16a: cli.eval bf16 and int8, cli.validate and cli.infer at K = 4
+    against K = 1 on 9b's checkpoint and its 21-batch infer shards."""
+    train_dir = os.path.join(root, "scale_train") + "/"
+    pattern = os.path.join(root, "infer", "test-*.tfrecord")
+    videos = len(read_csv(os.path.join(root, "infer", "pred_none.csv")))
+    batches = math.ceil(videos / TrainConfig().batch_size)
+    levels = 2 * TrainConfig().lstm_layers
+    eval_argv = ["--train_dir", train_dir, "--run_once", "true",
+                 "--eval_data_pattern", pattern, "--deterministic_input", "true"]
+    launches = {}
+    for tag, main_fn, logger_name, extra, per_batch in (
+            ("eval bf16", eval_cli.main, "eval", [], {"lstm_chunk_scan": levels}),
+            ("eval int8", eval_cli.main, "eval", ["--quantize", "int8"],
+             {"lstm_chunk_scan_int8": levels}),
+            ("validate", validate_cli.main, "validate", [],
+             {"lstm_chunk_scan": 2 * levels})):
+        runs = stacked_runs(tag, main_fn, logger_name, lambda k: eval_argv + extra,
+                            per_batch, batches, EVAL_RATE_RE)
+        rel = check_stacked_epoch(tag, runs)
+        rates = {k: float(r[2][0][0]) for k, r in runs.items()}
+        launches[tag] = runs[STACK_K][1]
+        log(f"[16] 16a {tag}, {videos} videos ({batches} batches): K={STACK_K} epoch "
+            f"metrics bit-equal to K=1 but avg_loss ({rel:.3g} relative); the CLI's "
+            f"examples/s K=1 {rates[1]:.1f}, K={STACK_K} {rates[STACK_K]:.1f} ({smi})")
+    csv = {k: os.path.join(root, "infer", f"pred_k{k}.csv") for k in (1, STACK_K)}
+    runs = stacked_runs("infer bf16", infer_cli.main, "infer", lambda k: [
+        "--train_dir", train_dir, "--input_data_pattern", pattern,
+        "--deterministic_input", "true", "--output_file", csv[k]],
+        {"lstm_chunk_scan": levels}, batches, INFER_LINE_RE)
+    rows = {k: read_csv(path) for k, path in csv.items()}
+    if len(rows[1]) != videos:
+        raise AssertionError(f"cli.infer wrote {len(rows[1])} rows of {videos}")
+    worst = rows_within(rows[STACK_K], rows[1], TOL_CSV, f"16a infer K={STACK_K}")
+    same = 0
+    for (vid, a), (_, b) in zip(rows[STACK_K], rows[1]):
+        for r, ((ca, pa), (cb, pb)) in enumerate(zip(a, b)):
+            near = [abs(pb - b[q][1]) for q in (r - 1, r + 1) if 0 <= q < len(b)]
+            if ca != cb and min(near) > TOL_CSV:
+                raise AssertionError(f"{vid}: rank {r} is class {ca} at K={STACK_K}, "
+                                     f"{cb} at K=1")
+        same += a == b
+    rates = {k: int(r[2][-1][0]) / float(r[2][-1][1]) for k, r in runs.items()}
+    launches["infer bf16"] = runs[STACK_K][1]
+    log(f"[16] 16a infer bf16, {videos} videos: K={STACK_K} rows (device top-k) "
+        f"within {worst:.3g} of K=1 (host ranking), the same classes where "
+        f"neighbours are {TOL_CSV} apart, {same} of {videos} rows byte-equal; "
+        f"videos/s K=1 {rates[1]:.1f}, K={STACK_K} {rates[STACK_K]:.1f} ({smi})")
+    return launches
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase_orbax(root: str, smi: str) -> dict:
+    """16b: cli.train --checkpoint_format orbax for 2 steps on 9b's train
+    shards; its directory restored into a card state bit for bit as a
+    msgpack save and restore of the same state; cli.eval,
+    inspect_checkpoint and Predictor.from_checkpoint over the directory
+    against the msgpack file; save and restore GiB/s; the committed
+    JAX-written directories read on the card."""
+    cfg = TrainConfig()
+    levels = 2 * cfg.lstm_layers
+    orbax_dir = os.path.join(root, "orbax_train") + "/"
+    state, train_s, counts = run_binary(
+        "16b train --checkpoint_format orbax", train_cli.main, [
+            "--train_dir", orbax_dir, "--num_epochs", "1", "--start_new_model", "true",
+            "--checkpoint_format", "orbax",
+            "--train_data_pattern", os.path.join(root, "scale", "train*.tfrecord")],
+        {"lstm_train_fwd": 2 * levels * 2, "lstm_train_bwd": 2 * levels * 2},
+        phase="16")
+    path = checkpoint.latest_checkpoint(orbax_dir)
+    if not os.path.isdir(path) or state.global_step != 4:  # 2 a step: both towers
+        raise AssertionError(f"cli.train left {path} at step {state.global_step}")
+    msgpack_dir = os.path.join(root, "orbax_msgpack") + "/"
+    msg = checkpoint.save_checkpoint(msgpack_dir, state, state.global_step)
+    opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
+    restored = {}
+    for name, src in (("orbax", path), ("msgpack", msg)):
+        template = init_distill_state(cfg, opt, prng.prng_key(3), device="cuda")
+        t0 = time.perf_counter()
+        checkpoint.restore_checkpoint(src, template)
+        torch.cuda.synchronize()
+        restored[name] = (template, time.perf_counter() - t0)
+    for tower in ("teacher", "student"):
+        want = getattr(state, tower).state_dict()
+        for name, (template, _) in restored.items():
+            for key, value in getattr(template, tower).state_dict().items():
+                if not torch.equal(value, want[key]):
+                    raise AssertionError(f"{name}: restored {tower}.{key} differs")
+    for slots in ("opt_teacher", "opt_student"):
+        a, b = (getattr(restored[n][0], slots) for n in ("orbax", "msgpack"))
+        for key in ("mu", "nu"):
+            for name, t in a[key].items():
+                if not torch.equal(t, b[key][name]):
+                    raise AssertionError(f"{slots}.{key}.{name}: orbax != msgpack")
+    size = dir_bytes(path)
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(os.path.join(root, "orbax_io"), state, 2,
+                               backend="orbax")
+    save_s = time.perf_counter() - t0
+    restore_s = restored["orbax"][1]
+    del restored, state
+    log(f"[16] 16b cli.train --checkpoint_format orbax {train_s:.3f} s; its "
+        f"directory {size} B ({size / 2**30:.3f} GiB, the msgpack file "
+        f"{os.path.getsize(msg)} B): save {save_s:.3f} s ({size / save_s / 2**30:.2f} "
+        f"GiB/s), restore into a card state {restore_s:.3f} s "
+        f"({size / restore_s / 2**30:.2f} GiB/s); parameters and Adam slots "
+        f"bit-equal to the msgpack save and restore ({smi})")
+    eval_pattern = os.path.join(root, "scale", "validate*.tfrecord")
+    epochs, listings = {}, {}
+    for name, train_dir in (("orbax", orbax_dir), ("msgpack", msgpack_dir)):
+        epochs[name], _, _ = run_binary(
+            f"16b eval over the {name} checkpoint", eval_cli.main, [
+                "--train_dir", train_dir, "--run_once", "true",
+                "--deterministic_input", "true", "--eval_data_pattern", eval_pattern],
+            {"lstm_chunk_scan": levels * math.ceil(SCALE_EVAL / cfg.batch_size)},
+            phase="16")
+        out = io.StringIO()
+        to_string(inspect_checkpoint_cli.main, out)(
+            ["--file_name", checkpoint.latest_checkpoint(train_dir)])
+        listings[name] = out.getvalue()
+    if not same_epoch(epochs["orbax"], epochs["msgpack"]):
+        raise AssertionError("cli.eval over the orbax directory differs")
+    if listings["orbax"] != listings["msgpack"]:
+        raise AssertionError("inspect_checkpoint lists the directory otherwise")
+    serve_cfg = TrainConfig(compute_dtype="bfloat16")
+    feats, nf = next(requests((64,), serve_cfg, seed=6))
+    probs = {}
+    for name, train_dir in (("orbax", orbax_dir), ("msgpack", msgpack_dir)):
+        predictor, _, _ = run_binary(
+            f"16b Predictor.from_checkpoint over the {name} checkpoint",
+            lambda d: Predictor.from_checkpoint(d, serve_cfg, serve_batch=SERVE_BATCH,
+                                                device="cuda"), train_dir, {},
+            phase="16")
+        lstm_scan.lstm_chunk_scan.launches = 0
+        probs[name] = predictor.predict(feats, nf)
+        if lstm_scan.lstm_chunk_scan.launches != levels:
+            raise AssertionError(f"the {name} Predictor made "
+                                 f"{lstm_scan.lstm_chunk_scan.launches} launches")
+    check_predictions(probs["orbax"], len(nf), cfg.num_classes, "orbax Predictor")
+    if not np.array_equal(probs["orbax"], probs["msgpack"]):
+        raise AssertionError("the Predictor over the orbax directory differs")
+    log(f"[16] 16b cli.eval over the directory equals cli.eval over the msgpack "
+        f"file (every metric); inspect_checkpoint lists "
+        f"{listings['orbax'].count('tensor_name:')} tensors as for the file; "
+        f"Predictor.from_checkpoint over it serves 64 videos in {levels} launches, "
+        "bit-equal to the file's")
+    for name in ("one", "two"):
+        base = os.path.join(FIXTURES, name)
+        want = dict(np.load(os.path.join(base, "values.npz")))
+        got = flat_leaves(checkpoint.read_checkpoint(checkpoint.latest_checkpoint(base)))
+        if sorted(got) != sorted(want) or not all(
+                np.asarray(got[k]).dtype == want[k].dtype
+                and np.array_equal(np.asarray(got[k]), want[k]) for k in want):
+            raise AssertionError(f"the JAX-written fixture {name} reads otherwise")
+    log(f"[16] 16b the committed JAX-written orbax directories (one process; two "
+        f"processes, ocdbt.process_0/1, a 4-chunk grid) read bit-equal to their "
+        f".npz through libzstd at {orbax_io.zstd_library()}")
+    return counts
+
+
+
 def jax_package_files():
     """The files under the JAX package's directory (beside this script),
     or None where there is none."""
@@ -3074,6 +3309,10 @@ def main() -> None:
         t0 = time.perf_counter()
         mesh_launches = phase_mesh(root, smi)
         log(f"[15] phase 15 wall {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        stacked_launches = phase_stacked(root, smi)
+        orbax_launches = phase_orbax(root, smi)
+        log(f"[16] phase 16 wall {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(TRACE_DIR, ignore_errors=True)
@@ -3083,8 +3322,8 @@ def main() -> None:
         raise AssertionError(f"the port imported {loaded}")
     if jax_package_files() != jax_files:
         raise AssertionError("the run wrote into the JAX package's directory")
-    log("[15] no module of jax, flax, msgpack or the JAX package loaded; nothing "
-        "written into the JAX package's directory (phases 1-15)")
+    log("[16] no module of jax, flax, msgpack or the JAX package loaded; nothing "
+        "written into the JAX package's directory (phases 1-16)")
     # The line's times are at student_L1 (T=6, B=1280, H=1024), the
     # student's first layer at batch 256. "ms" and "plain_ms" are eager
     # calls, "graph_ms" the kernel's graph replay. library_ms is cuDNN's
@@ -3125,6 +3364,12 @@ def main() -> None:
         # phase 15's paths: a rank's launches, each path counted alone
         kernels[-1]["mesh_launches"] = {path: counts[name] for path, counts
                                         in mesh_launches.items() if counts[name]}
+        # phase 16's paths: K = 4 stacked eval, validate and infer (dummy
+        # batches included), cli.train --checkpoint_format orbax
+        paths = {f"{tag} K={STACK_K}": counts.get(name, 0)
+                 for tag, counts in stacked_launches.items()}
+        paths["train --checkpoint_format orbax"] = orbax_launches[name]
+        kernels[-1]["phase16_launches"] = {p: n for p, n in paths.items() if n}
     log(f"[13] interop: export {interop['export_gib_s']:.2f} GiB/s, import "
         f"{interop['import_gib_s']:.2f} GiB/s of a {interop['bundle_bytes']} B bundle; "
         f"chunked msgpack {chunked['bytes']} B, save {chunked['save_gib_s']:.2f} GiB/s, "

@@ -34,7 +34,6 @@ logger = logging.getLogger("convert")
 
 
 def convert(args) -> str:
-    flags_lib.check_ported(args)
     cfg = flags_lib.config_from_args(args)
     device = flags_lib.resolve_device(args)
     optimizer = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)

@@ -37,6 +37,7 @@ from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
 )
 from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
     build_sharded_eval_step,
+    build_sharded_eval_step_stacked,
     build_sharded_quantized_eval_step,
 )
 from efficientvideoclassification_youtube8m_torch.train.checkpoint import (
@@ -53,7 +54,6 @@ logger = logging.getLogger("eval")
 
 def evaluate(args):
     """Returns the epoch metrics of the last checkpoint evaluated."""
-    flags_lib.check_ported(args)
     cfg = flags_lib.config_from_args(args)
     aggregated = not args.frame_features
     if args.quantize == "int8" and aggregated:
@@ -66,7 +66,12 @@ def evaluate(args):
     state = StudentState(student=init_model(cfg, device=device), opt_student={},
                          global_step=0, dropout_keep_prob=cfg.dropout)
     mesh = create_mesh(model=args.model_parallelism, device=device)
-    if args.quantize == "int8":
+    if args.steps_per_dispatch > 1:
+        # K batches a launch: the stacked int8 or bf16 step
+        step_fn = build_sharded_eval_step_stacked(
+            cfg, mesh, top_k=args.top_k, host_subsampled=not aggregated,
+            aggregated=aggregated, quantized=args.quantize == "int8")
+    elif args.quantize == "int8":
         step_fn = build_sharded_quantized_eval_step(cfg, mesh, top_k=args.top_k,
                                                     host_subsampled=True)
     else:
@@ -107,9 +112,9 @@ def main(argv=None):
                         help="int8: evaluate the quantized serving path "
                         "(ops/quantize.py), the deploy-gate accuracy check")
     parser.add_argument("--steps_per_dispatch", type=int, default=0,
-                        help="0 = auto (1 off the TPU) or 1: one batch per "
-                        "launch; K > 1 is not ported (ROADMAP Queue 1, "
-                        "the host paths of the binaries)")
+                        help="K > 1: K batches behind one launch and one "
+                        "packed fetch; epoch metrics are those of K = 1. "
+                        "0 = auto: 1 off the TPU")
     args = parser.parse_args(argv)
     flags_lib.dump_flags(args, logger)
     return evaluate(args)

@@ -40,7 +40,6 @@ logger = logging.getLogger("export_tf")
 def export(args) -> str:
     """Restore the checkpoint into a template of `--tower`'s state and
     write the bundle; returns its prefix."""
-    flags_lib.check_ported(args)
     cfg = flags_lib.config_from_args(args)
     device = flags_lib.resolve_device(args)
     optimizer = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)

@@ -54,7 +54,6 @@ logger = logging.getLogger("finetune")
 
 
 def finetune(args):
-    flags_lib.check_ported(args)
     cfg = flags_lib.config_from_args(args)
     aggregated = not args.frame_features
     device = flags_lib.resolve_device(args)

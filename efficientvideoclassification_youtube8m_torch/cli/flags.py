@@ -4,9 +4,7 @@ Flag names and defaults match the union of the reference's per-binary
 DEFINE_* blocks (train.py:27-99, frame_level_models.py:16-47,
 video_level_models.py:14-19), as the JAX package's parser does, so
 reference invocations port 1:1. Beside the parser: the parameter-list
-dump, `--steps_per_dispatch` resolution, the device the flags name, and
-the check that refuses what the port does not cover yet (orbax and
-tensor parallelism).
+dump, `--steps_per_dispatch` resolution and the device the flags name.
 """
 
 from __future__ import annotations
@@ -128,7 +126,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    "histogram summaries (the reference Supervisor's "
                    "save_summaries_secs, train.py:503)")
     p.add_argument("--checkpoint_format", default="msgpack",
-                   choices=["msgpack", "orbax"])
+                   choices=["msgpack", "orbax"],
+                   help="msgpack: one file; orbax: a directory in orbax's "
+                   "layout (train/orbax_io.py)")
     p.add_argument("--async_checkpoint", type=_bool, default=True,
                    help="overlap periodic checkpoint writes with training "
                    "(pinned host snapshot + background write; the final "
@@ -180,21 +180,15 @@ def param_names(module: nn.Module, prefix: str) -> List[str]:
 def resolve_steps_per_dispatch(args: argparse.Namespace,
                                logger: Optional[logging.Logger] = None) -> int:
     """Resolve --steps_per_dispatch and write the result back onto args:
-    negative values clamp to 1, and 0 ("auto") is 1, as the JAX rule
-    resolves it on a non-TPU backend. K > 1 stacks K batches into one
-    launch, which the JAX package needed for a high-latency host link;
-    whether the H100 needs it, or CUDA graphs instead, is an open question of ROADMAP
-    Queue 1, the host paths of the binaries, so K > 1 raises."""
+    an explicit K >= 1 wins, negative values clamp to 1, and 0 ("auto")
+    is 1, as the JAX rule resolves it off the TPU (its K = 24 is the TPU's
+    alone). K > 1 stacks K batches behind one launch of the eval binaries
+    (`parallel.distributed.stacked_ring`)."""
     k = getattr(args, "steps_per_dispatch", 1)
-    if k > 1:
-        raise NotImplementedError(
-            "--steps_per_dispatch > 1 is not ported: whether K-stacked "
-            "dispatch or CUDA graphs are needed on the GPU is open (ROADMAP "
-            "Queue 1, the host paths of the binaries)")
     if k == 0 and logger is not None:
         logger.info("steps_per_dispatch auto-resolved to 1")
-    args.steps_per_dispatch = 1
-    return 1
+    args.steps_per_dispatch = max(1, k)
+    return args.steps_per_dispatch
 
 
 def resolve_device(args: argparse.Namespace) -> torch.device:
@@ -221,12 +215,3 @@ def resolve_device(args: argparse.Namespace) -> torch.device:
         raise RuntimeError(f"--device {args.device}: there are only "
                            f"{torch.cuda.device_count()} CUDA devices")
     return device
-
-
-def check_ported(args: argparse.Namespace) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for a flag the
-    port does not cover yet: orbax checkpoints."""
-    if args.checkpoint_format == "orbax":
-        raise NotImplementedError(
-            "--checkpoint_format orbax is not ported yet (ROADMAP Queue 1, "
-            "orbax checkpoints); use msgpack")

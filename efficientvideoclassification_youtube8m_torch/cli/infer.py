@@ -1,5 +1,13 @@
 """Inference: student checkpoint -> Kaggle CSV (port of the JAX package's
-cli/infer.py, one batch per launch, single process on one device).
+cli/infer.py).
+
+The JAX binary is one process over every local device: it reads global
+batches and splits the rows over the mesh's data axis (and the head's
+columns over its model axis). The port runs one process per device:
+under a `torch.distributed` group rank 0 reads the global batches and
+each rank runs its data index's rows (`distributed.scatter_batches`);
+the rows are gathered in batch order and the master alone writes the
+CSV, whose bytes are one process's.
 
 The core of the reference's inference binaries
 (`inference_ensemble.py:113-204` minus the ensemble feed): stream test
@@ -15,6 +23,11 @@ pre-aggregated Examples into a video-level model
 --alpha_bias/--tensor_name reproduce `inference_bias.py:129,158-168`:
 before running, the named bias parameter b is replaced by
 `b/alpha + mean(b - b/alpha)`.
+
+`--steps_per_dispatch K > 1` runs K batches behind one launch and writes
+the rows from the step's device top-k (the packed host bundle), ties
+ranked lowest class first as `lax.top_k` ranks them, as the JAX binary
+does at the same K; K = 1 ranks the host copy of the predictions.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from efficientvideoclassification_youtube8m_torch.cli.validate import (
 )
 from efficientvideoclassification_youtube8m_torch.ensemble import (
     format_lines,
+    format_ranked_lines,
     write_predictions_csv,
 )
 from efficientvideoclassification_youtube8m_torch.ops.quantize import (
@@ -49,12 +63,14 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
     StudentState,
     init_model,
 )
+from efficientvideoclassification_youtube8m_torch.parallel import distributed
 from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
     create_mesh,
     shard_state,
 )
 from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
     build_sharded_eval_step,
+    build_sharded_eval_step_stacked,
     build_sharded_quantized_eval_step,
 )
 
@@ -84,7 +100,6 @@ def rescale_bias_param(model: nn.Module, tensor_path: str, alpha: float
 
 
 def inference(args) -> None:
-    flags_lib.check_ported(args)
     cfg = flags_lib.config_from_args(args)
     aggregated = not args.frame_features
     quantize = getattr(args, "quantize", "none")
@@ -97,23 +112,26 @@ def inference(args) -> None:
             raise ValueError(
                 "--quantize int8 covers the flagship HierarchicalLstmModel "
                 "+ MoeModel configuration")
-    # no auto mode here, as in the JAX package: 0 is 1, and K > 1 (rows
-    # from the device top-k, whose tie order differs) is not ported
+    # no auto mode here, as in the JAX package: 0 is 1, since the K > 1
+    # rows come from the device top-k
     if getattr(args, "steps_per_dispatch", 1) == 0:
         logger.info("steps_per_dispatch=0 (auto) is not applied to "
                     "inference (device-top-k tie order differs from the "
                     "host path); using 1")
-    flags_lib.resolve_steps_per_dispatch(args)
+    steps = flags_lib.resolve_steps_per_dispatch(args)
     device = flags_lib.resolve_device(args)
+    distributed.initialize(device=device)
+    host = distributed.host_context(cfg.batch_size, args.model_parallelism)
 
     # parameters only: the optimizer slots are neither allocated nor read
     state = StudentState(student=init_model(cfg, device=device), opt_student={},
                          global_step=0, dropout_keep_prob=cfg.dropout)
-    # the JAX binary's mesh: one process is a mesh of one (model > 1
-    # raises, as it does on one device)
+    # the JAX binary's mesh (model > 1 on one process raises, as it does
+    # on one device)
     mesh = create_mesh(model=args.model_parallelism, device=device)
     shard_state(state, mesh)
-    ckpt = latest_checkpoint(cfg.train_dir)
+    ckpt = distributed.broadcast_str(
+        latest_checkpoint(cfg.train_dir) if host.is_master else None)
     if ckpt is None:
         raise IOError(f"unable to find a checkpoint at location: {cfg.train_dir}")
     logger.info("restoring variables from %s", ckpt)
@@ -127,15 +145,24 @@ def inference(args) -> None:
         params = quantize_hierarchical_params(
             params, cfg.total_feature_size, cfg.lstm_cells, cfg.lstm_layers,
             device=device)
+    if steps > 1:
+        step_fn = build_sharded_eval_step_stacked(
+            cfg, mesh, top_k=args.top_k, host_subsampled=not aggregated,
+            aggregated=aggregated, quantized=quantize == "int8")
+    elif quantize == "int8":
         step_fn = build_sharded_quantized_eval_step(cfg, mesh, top_k=args.top_k,
                                                     host_subsampled=True)
     else:
         step_fn = build_sharded_eval_step(cfg, mesh, top_k=args.top_k,
                                           host_subsampled=not aggregated,
                                           aggregated=aggregated)
-    # frame path: parse and move only the kept frames
+    # the global batches, read by rank 0; frame path: parse and move only
+    # the kept frames
     loader = eval_loader(cfg, args, frame_stride=1 if aggregated else cfg.every_n,
-                         aggregated=aggregated, pattern=args.input_data_pattern)
+                         aggregated=aggregated, pattern=args.input_data_pattern,
+                         host=distributed.HostContext(0, 1, cfg.batch_size, True))
+    stream = distributed.scatter_batches(loader, mesh)
+    model = args.model_parallelism
 
     def rows():
         num_examples_processed = 0
@@ -145,17 +172,42 @@ def inference(args) -> None:
         ring: deque = deque()
         depth = max(1, cfg.fetch_depth)
 
-        def emit(fetch, vids, pad):
+        def progress(valid):
             nonlocal num_examples_processed
-            valid = len(vids) - pad
-            preds = fetch.get()["predictions"].numpy()[:valid]
             num_examples_processed += valid
             logger.info("num examples processed: %d elapsed seconds: %.2f",
                         num_examples_processed, time.time() - start_time)
-            yield from format_lines(vids[:valid], preds, args.top_k)
+
+        if steps > 1:
+            # K batches a launch; the rows from the device top-k
+            dummy_labels = np.zeros((host.local_batch_size, cfg.num_classes), bool)
+
+            def launch(bufs):
+                dev = distributed.stack_batches(mesh, bufs, steps,
+                                                dummy_labels=dummy_labels)
+                return (HostFetch({"host_pack": step_fn(params, *dev)}),
+                        [(b.video_ids, b.pad) for b in bufs])
+
+            for fetch, metas in distributed.stacked_ring(stream, steps, depth,
+                                                         launch):
+                gathered = distributed.gather_stacked_outputs(
+                    fetch.get()["host_pack"], [(None, pad) for _, pad in metas],
+                    model)
+                for (vids, _), got in zip(metas, gathered):
+                    progress(len(vids))
+                    yield from format_ranked_lines(vids, got["topk_idx"],
+                                                   got["topk_val"])
+            return
+
+        def emit(fetch, vids, pad):
+            preds = fetch.get()["predictions"].numpy()
+            got, _ = distributed.gather_eval_rows({"predictions": preds}, pad,
+                                                  model)
+            progress(len(vids))
+            yield from format_lines(vids, got["predictions"], args.top_k)
 
         for (f, l, n), (vids, pad) in device_prefetch(
-                loader, device, host_keep=lambda b: (b.video_ids, b.pad)):
+                stream, device, host_keep=lambda b: (b.video_ids, b.pad)):
             ring.append((HostFetch(step_fn(params, f, l, n), ("predictions",)),
                          vids, pad))
             if len(ring) > depth:
@@ -163,9 +215,13 @@ def inference(args) -> None:
         while ring:
             yield from emit(*ring.popleft())
 
-    write_predictions_csv(args.output_file, rows())
-    logger.info("Done with inference. The output file was written to %s",
-                args.output_file)
+    if host.is_master:
+        write_predictions_csv(args.output_file, rows())
+        logger.info("Done with inference. The output file was written to %s",
+                    args.output_file)
+    else:
+        for _ in rows():  # the gathers are collectives of every rank
+            pass
 
 
 def main(argv=None):
@@ -180,9 +236,10 @@ def main(argv=None):
                         choices=["none", "int8"],
                         help="int8: serve the quantized student path")
     parser.add_argument("--steps_per_dispatch", type=int, default=1,
-                        help="1 (0 is read as 1): one batch per launch; K > 1 "
-                        "is not ported (ROADMAP Queue 1, the host paths of "
-                        "the binaries)")
+                        help="K > 1: K batches behind one launch, the rows "
+                        "from the device top-k (probability ties ranked "
+                        "lowest class first, which the K = 1 host ranking "
+                        "may order otherwise); 0 is read as 1")
     args = parser.parse_args(argv)
     flags_lib.dump_flags(args, logger)
     inference(args)

@@ -4,9 +4,10 @@ cli/inspect_checkpoint.py).
 Rebuild of the reference's `inspect_checkpoint_myfile.py`
 (`print_tensors_in_checkpoint_file`): prints every tensor path, shape,
 dtype and optionally values — from msgpack checkpoints (read by
-`train/msgpack_io.py`, no flax) and from the reference's TF-V2 bundles
-(read by `data/tf_checkpoint.py`, no TensorFlow). Orbax directories are
-not ported and raise.
+`train/msgpack_io.py`, no flax), orbax directories (read by
+`train/orbax_io.py` as orbax restores them without a template, no orbax)
+and the reference's TF-V2 bundles (read by `data/tf_checkpoint.py`, no
+TensorFlow).
 """
 
 from __future__ import annotations
@@ -16,12 +17,13 @@ import os
 import sys
 
 import numpy as np
+import torch
 
 from efficientvideoclassification_youtube8m_torch.data.tf_checkpoint import (
     TFCheckpointReader,
     is_tf_checkpoint,
 )
-from efficientvideoclassification_youtube8m_torch.train import msgpack_io
+from efficientvideoclassification_youtube8m_torch.train import msgpack_io, orbax_io
 
 
 def print_tensors_in_tf_checkpoint(
@@ -47,10 +49,9 @@ def print_tensors_in_checkpoint_file(
         print_tensors_in_tf_checkpoint(file_name, tensor_name, all_tensors)
         return
     if os.path.isdir(file_name):
-        raise NotImplementedError(
-            f"{file_name} is an orbax checkpoint; orbax is not ported yet "
-            "(ROADMAP Queue 1, orbax checkpoints)")
-    raw = msgpack_io.load(file_name)
+        raw = orbax_io.read_orbax(file_name, sequences=True)
+    else:
+        raw = msgpack_io.load(file_name)
 
     def walk(node, path=""):
         if isinstance(node, dict):
@@ -60,11 +61,14 @@ def print_tensors_in_checkpoint_file(
             for i, v in enumerate(node):
                 walk(v, f"{path}/{i}")
         else:
-            arr = np.asarray(node)
+            # an orbax bfloat16 leaf is a torch tensor; JAX names its
+            # dtype bfloat16 too
+            bf16 = isinstance(node, torch.Tensor)
+            arr = node.float().numpy() if bf16 else np.asarray(node)
             if tensor_name and tensor_name not in path:
                 return
             print(f"tensor_name: {path}  shape: {list(arr.shape)}  "
-                  f"dtype: {arr.dtype}")
+                  f"dtype: {'bfloat16' if bf16 else arr.dtype}")
             if all_tensors or tensor_name:
                 print(arr)
 

@@ -53,7 +53,6 @@ def task_string(host: distributed.HostContext) -> str:
 
 
 def train(args):
-    flags_lib.check_ported(args)
     cfg = flags_lib.config_from_args(args)
     if not args.frame_features:
         # the reference accepts the flag, but its graph build then fails

@@ -13,7 +13,7 @@ serving over `torch.distributed`, one process per device.
     over the data axis.
 
 The names of the JAX package's `parallel` that the port has are exported
-here. Orbax checkpoints are a ROADMAP Queue 1 item.
+here.
 """
 
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
@@ -23,6 +23,7 @@ from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
     create_mesh,
     gather_state,
     make_params_specs,
+    shard_stacked_batch,
     shard_state,
     shard_state_specs,
 )
@@ -34,9 +35,11 @@ from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
     build_shardmap_finetune_step,
     build_sharded_distill_step,
     build_sharded_eval_step,
+    build_sharded_eval_step_stacked,
     build_sharded_finetune_step,
     build_sharded_quantized_eval_step,
     build_sharded_validate_step,
+    build_sharded_validate_step_stacked,
 )
 
 __all__ = [
@@ -46,6 +49,7 @@ __all__ = [
     "distributed",
     "gather_state",
     "make_params_specs",
+    "shard_stacked_batch",
     "shard_state",
     "shard_state_specs",
     "build_sequence_parallel_state_fn",
@@ -53,7 +57,9 @@ __all__ = [
     "build_shardmap_finetune_step",
     "build_sharded_distill_step",
     "build_sharded_eval_step",
+    "build_sharded_eval_step_stacked",
     "build_sharded_finetune_step",
     "build_sharded_quantized_eval_step",
     "build_sharded_validate_step",
+    "build_sharded_validate_step_stacked",
 ]

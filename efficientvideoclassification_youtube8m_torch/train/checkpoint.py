@@ -1,15 +1,18 @@
 """Checkpointing with TF-Saver semantics (port of the JAX package's
-train/checkpoint.py, msgpack backend, single process).
+train/checkpoint.py).
 
-A checkpoint is `model.ckpt-<step>.msgpack` in the JAX package's layout
-(`train.state.state_tree`), written by the jax-free codec of
-`train/msgpack_io.py`: the JAX package's `restore_checkpoint` reads the
-port's files and the port reads the JAX package's. The `checkpoint`
+A checkpoint holds the JAX package's layout (`train.state.state_tree`)
+in one of its two backends: `model.ckpt-<step>.msgpack`, written by the
+jax-free codec of `train/msgpack_io.py`, or (`backend="orbax"`) the
+directory `model.ckpt-<step>` in orbax's layout, written and read by
+`train/orbax_io.py` (a JAX-written directory in orbax's default OCDBT
+store too). The JAX package's `restore_checkpoint` reads the port's
+checkpoints and the port reads the JAX package's. The `checkpoint`
 pointer file lists basenames latest first; `max_to_keep` removes the
-oldest. The reference's TF-V2 bundles (`model.ckpt-N.index` +
-`.data-*`) restore through `train/tf_import.py`, so a reference
-train_dir trains on, validates, evaluates and serves without a
-conversion step. Orbax directories are not ported and raise.
+oldest, files and directories alike. The reference's TF-V2 bundles
+(`model.ckpt-N.index` + `.data-*`) restore through `train/tf_import.py`,
+so a reference train_dir trains on, validates, evaluates and serves
+without a conversion step.
 
 Under a process group every rank calls the savers: a state sharded for
 tensor parallelism is gathered over each model group first (a file
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
-from efficientvideoclassification_youtube8m_torch.train import msgpack_io
+from efficientvideoclassification_youtube8m_torch.train import msgpack_io, orbax_io
 from efficientvideoclassification_youtube8m_torch.train.state import (
     DistillState,
     StudentState,
@@ -54,11 +57,7 @@ _PREFIX = "model.ckpt"
 
 
 def _check_backend(backend: str) -> None:
-    if backend == "orbax":
-        raise NotImplementedError(
-            "orbax checkpoints are not ported yet (ROADMAP Queue 1, orbax "
-            "checkpoints); use --checkpoint_format msgpack")
-    if backend != "msgpack":
+    if backend not in ("msgpack", "orbax"):
         raise ValueError(f"unknown checkpoint backend {backend!r}")
 
 
@@ -82,22 +81,27 @@ def _to_numpy(leaf: Any) -> np.ndarray:
 
 def save_checkpoint(train_dir: str, state: Any, step: int,
                     max_to_keep: int = 1, backend: str = "msgpack") -> str:
-    """Write `model.ckpt-<step>.msgpack` (through `.tmp` and `os.replace`)
-    and update the pointer file. `state` is a DistillState/StudentState
-    or a tree of the codec's types and tensors. The reference keeps only
-    the latest (`Saver(max_to_keep=1)`, train.py:651). Every rank gathers
-    a sharded state; only the master writes, the other ranks return the
-    path."""
+    """Write `model.ckpt-<step>.msgpack` (through `.tmp` and `os.replace`),
+    or with `backend="orbax"` the directory `model.ckpt-<step>` (through
+    a temporary directory; a stale one is replaced), and update the
+    pointer file. `state` is a DistillState/StudentState or a tree of the
+    codecs' types and tensors. The reference keeps only the latest
+    (`Saver(max_to_keep=1)`, train.py:651). Every rank gathers a sharded
+    state; only the master writes, the other ranks return the path."""
     _check_backend(backend)
-    path = os.path.join(train_dir, f"{_PREFIX}-{step}.msgpack")
+    suffix = ".msgpack" if backend == "msgpack" else ""
+    path = os.path.join(train_dir, f"{_PREFIX}-{step}{suffix}")
     tree = _tree(state)
     if not distributed.is_master():
         return path
     os.makedirs(train_dir, exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        msgpack_io.dump(tree, f, default=_to_numpy)
-    os.replace(tmp, path)
+    if backend == "orbax":
+        orbax_io.write_orbax(path, tree, default=_to_numpy)
+    else:
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            msgpack_io.dump(tree, f, default=_to_numpy)
+        os.replace(tmp, path)
     _update_pointer(train_dir, path, max_to_keep)
     return path
 
@@ -185,7 +189,8 @@ class AsyncCheckpointSaver:
                 return
         self.wait()
         if not self.enabled:
-            save_checkpoint(train_dir, tree, step, max_to_keep=max_to_keep)
+            save_checkpoint(train_dir, tree, step, max_to_keep=max_to_keep,
+                            backend=backend)
             return
         snapshot = self._snapshot(tree)
         copied = None
@@ -199,7 +204,8 @@ class AsyncCheckpointSaver:
             try:
                 if copied is not None:
                     copied.synchronize()
-                save_checkpoint(train_dir, snapshot, step, max_to_keep=max_to_keep)
+                save_checkpoint(train_dir, snapshot, step, max_to_keep=max_to_keep,
+                                backend=backend)
             except BaseException as e:  # surfaced at the next wait()/save()
                 self._exc = e
 
@@ -261,27 +267,27 @@ def checkpoint_step(path: str) -> int:
 def read_checkpoint(path: str, target=None,
                     fields: Optional[Sequence[str]] = None) -> Any:
     """The raw tree of a checkpoint (numpy leaves): a msgpack file as it
-    is; a TF-V2 bundle (its prefix, with or without `.index`) as the JAX
-    state tree of the state `target` names, restricted to `fields`.
-    Orbax directories raise NotImplementedError."""
+    is; an orbax directory (`orbax_io.read_orbax`, only the top-level
+    `fields` when given); a TF-V2 bundle (its prefix, with or without
+    `.index`) as the JAX state tree of the state `target` names,
+    restricted to `fields`."""
     if is_tf_checkpoint(path):
         if target is None:
             raise ValueError(f"{path} is a TF-V2 bundle: its variables are "
                              "named after a state, so pass the target state")
         return read_tf_tree(path, target, fields)
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is an orbax checkpoint; orbax is not ported yet "
-            "(ROADMAP Queue 1, orbax checkpoints)")
+        return orbax_io.read_orbax(path, fields)
     return msgpack_io.load(path)
 
 
 def restore_checkpoint(path: str, target):
     """Restore a checkpoint into the DistillState/StudentState `target`
     in place and return it. Every field of the target must be in a
-    msgpack file (extra fields are ignored, as flax ignores them); a
-    TF-V2 bundle goes through the importer, which leaves the fields the
-    bundle lacks (the dropout keep-prob, absent Adam slots) as they are.
+    msgpack file or an orbax directory (extra fields are ignored, as flax
+    ignores them); a TF-V2 bundle goes through the importer, which leaves
+    the fields the bundle lacks (the dropout keep-prob, absent Adam
+    slots) as they are.
     Names, structure and shapes are checked before anything is copied."""
     if is_tf_checkpoint(path):
         return import_tf_checkpoint(path, target)
@@ -294,7 +300,7 @@ def restore_subtree(path: str, target, keys: Sequence[str]):
     reference's validate.py:350-381 become field selection."""
     if is_tf_checkpoint(path):
         return import_tf_checkpoint(path, target, fields=keys)
-    tree = read_checkpoint(path)
+    tree = read_checkpoint(path, fields=keys)
     for key in keys:
         if key not in tree:
             raise KeyError(f"checkpoint {path} has no field {key!r}")

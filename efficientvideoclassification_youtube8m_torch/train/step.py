@@ -598,16 +598,35 @@ def _pack_host_outputs(topk_val, topk_idx, per_example_loss, perr,
     return torch.cat(parts, dim=1)
 
 
-def _faithful_eval_rngs(cfg: TrainConfig, num_frames: torch.Tensor):
+def _faithful_eval_rngs(cfg: TrainConfig, num_frames: torch.Tensor,
+                        mesh: Optional[Mesh] = None):
     """Eval-time frame-sampling keys (teacher, student) for DBoF under
     faithful mode, else (None, None). The reference samples frames at
     random at eval too (model_utils.py:39-58); the keys fold the batch's
     `sum(num_frames)` into `PRNGKey(seed)`, so every batch draws anew.
-    The sum stays on the device: the keys are device tensors."""
+    The sum stays on the device: the keys are device tensors. On a mesh
+    with data > 1 the JAX GSPMD eval step is one program over the global
+    batch, so the sum is the global batch's, all-reduced over the data
+    group (the draws go through `_eval_draws`)."""
     if not (cfg.faithful_quirks and cfg.model == "DbofModel"):
         return None, None
-    return tuple(prng.split(prng.fold_in(prng.prng_key(cfg.seed),
-                                         torch.sum(num_frames))))
+    total = torch.sum(num_frames)
+    if _global_rows(mesh):
+        dist.all_reduce(total, group=mesh.group)
+    return tuple(prng.split(prng.fold_in(prng.prng_key(cfg.seed), total)))
+
+
+def _global_rows(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.group is not None and mesh.data > 1
+
+
+def _eval_draws(mesh: Optional[Mesh]):
+    """The eval steps' random draws: on a mesh with data > 1 the global
+    batch's, this rank's rows sliced out (`prng.global_batch_rows`), as
+    the JAX GSPMD eval step draws them."""
+    if _global_rows(mesh):
+        return prng.global_batch_rows(mesh.data_index, mesh.data)
+    return contextlib.nullcontext()
 
 
 def _eval_outputs(predictions: torch.Tensor, labels: torch.Tensor,
@@ -632,11 +651,14 @@ def _eval_outputs(predictions: torch.Tensor, labels: torch.Tensor,
     }
 
 
-def build_validate_step(cfg: TrainConfig, top_k: int = 20):
+def build_validate_step(cfg: TrainConfig, top_k: int = 20,
+                        mesh: Optional[Mesh] = None):
     """Student eval with the teacher present for L_REP
     (validate.py:109-189): both towers forward-only. Returns
     step(teacher, student, features_u8, labels, num_frames) -> the eight
-    loss scalars and the student's `_eval_outputs`."""
+    loss scalars and the student's `_eval_outputs`. `mesh`: the rank's
+    rows are its data index's slice of the global batch (DBoF's eval
+    keys, `_faithful_eval_rngs`)."""
     label_loss_fn = resolve_label_loss(cfg)
 
     @torch.no_grad()
@@ -645,11 +667,12 @@ def build_validate_step(cfg: TrainConfig, top_k: int = 20):
         model_input_s = uniform_subsample(model_input, cfg.every_n)
         nf_student = student_num_frames(num_frames, cfg.every_n,
                                         cfg.max_num_frames)
-        rng_t, rng_s = _faithful_eval_rngs(cfg, num_frames)
-        out_t = forward_teacher(cfg, teacher, model_input, num_frames, labels,
-                                inference=True, rng=rng_t)
-        out_s = forward_student(cfg, student, model_input_s, nf_student,
-                                labels, inference=True, rng=rng_s)
+        rng_t, rng_s = _faithful_eval_rngs(cfg, num_frames, mesh)
+        with _eval_draws(mesh):
+            out_t = forward_teacher(cfg, teacher, model_input, num_frames,
+                                    labels, inference=True, rng=rng_t)
+            out_s = forward_student(cfg, student, model_input_s, nf_student,
+                                    labels, inference=True, rng=rng_s)
         ls = _distill_losses(cfg, out_t, out_s, labels, label_loss_fn)
         return {**ls, **_eval_outputs(out_s["predictions"], labels, top_k)}
 
@@ -659,7 +682,8 @@ def build_validate_step(cfg: TrainConfig, top_k: int = 20):
 def build_eval_step(cfg: TrainConfig, top_k: int = 20,
                     kernel_override: Optional[bool] = None,
                     host_subsampled: bool = False,
-                    aggregated: bool = False):
+                    aggregated: bool = False,
+                    mesh: Optional[Mesh] = None):
     """Student-only eval (eval_finetune.py:108-176). Returns
     step(student, features_u8, labels, num_frames) -> `_eval_outputs`.
 
@@ -667,7 +691,7 @@ def build_eval_step(cfg: TrainConfig, top_k: int = 20,
     `num_frames` stays the ORIGINAL count. `kernel_override` replaces the
     rule that picks the forward-only kernel. `aggregated`: [B, D] float32
     pre-aggregated features into the video-level model
-    (eval_finetune.py:298-302)."""
+    (eval_finetune.py:298-302). `mesh`: as in `build_validate_step`."""
 
     @torch.no_grad()
     def step(student, features_u8, labels, num_frames):
@@ -682,10 +706,11 @@ def build_eval_step(cfg: TrainConfig, top_k: int = 20,
         sub = (features_u8 if host_subsampled
                else uniform_subsample(features_u8, cfg.every_n))
         model_input_s = preprocess_batch(cfg, sub, nf_student)
-        _, rng_s = _faithful_eval_rngs(cfg, num_frames)
-        out_s = forward_student(cfg, student, model_input_s, nf_student, labels,
-                                inference=True, rng=rng_s,
-                                kernel_override=kernel_override)
+        _, rng_s = _faithful_eval_rngs(cfg, num_frames, mesh)
+        with _eval_draws(mesh):
+            out_s = forward_student(cfg, student, model_input_s, nf_student,
+                                    labels, inference=True, rng=rng_s,
+                                    kernel_override=kernel_override)
         return _eval_outputs(out_s["predictions"], labels, top_k)
 
     return step

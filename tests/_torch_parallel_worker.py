@@ -7,8 +7,13 @@ Joins the group from the environment, then on the CPU: two data-parallel
 distill steps in float64 and in float32, each rank on its half of the
 global batch; one DBoF finetune step with and without synced batch norm;
 cli.train over shards that give the ranks unequal numbers of batches;
-cli.eval and cli.validate over unequal eval shards. Writes its results to
-<out_dir>/rank<r>.npz. The configs and batches are defined here and
+cli.eval and cli.validate over unequal eval shards, one batch a launch
+and three (`--steps_per_dispatch 3`); DBoF's faithful-mode
+eval step (frame samples drawn for the global batch);
+cli.infer at (data 2, model 1) and (1, 2), each writing
+<out_dir>/infer-<data>x<model>.csv. Writes its results to
+<out_dir>/rank<r>.npz, the rows of the DBoF step to
+<out_dir>/rank<r>_rows.npz. The configs and batches are defined here and
 imported by the test, so both sides see the same ones.
 """
 
@@ -28,6 +33,7 @@ from efficientvideoclassification_youtube8m_torch.parallel import distributed  #
 from efficientvideoclassification_youtube8m_torch.parallel.mesh import create_mesh  # noqa: E402
 from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (  # noqa: E402
     build_sharded_distill_step,
+    build_sharded_eval_step,
     build_sharded_finetune_step,
 )
 from efficientvideoclassification_youtube8m_torch.train import step as tstep  # noqa: E402
@@ -64,6 +70,10 @@ DBOF = TrainConfig(
     sync_batch_norm=True, optimizer="GradientDescentOptimizer",
     compute_dtype="float32",
 )
+# DBoF's faithful-mode eval keys: random frame samples at eval, the key
+# folded with the global batch's frame count
+DBOF_FAITHFUL = DBOF.replace(faithful_quirks=True, sync_batch_norm=False)
+DBOF_EVAL_SEED = 13
 DISTILL_SEEDS = (3, 4)  # the global batches of the two distill steps
 DBOF_SEED = 9
 # cli runs: unequal shards (rank 0 reads shard 0, rank 1 shard 1)
@@ -177,6 +187,33 @@ def run_dbof(rank, sync):
     return out
 
 
+def run_dbof_faithful_eval(rank):
+    """The eval step on this rank's half of one global batch, over the
+    data group of two (DBoF has no validate step: distillation needs the
+    hierarchical model's state, in both packages)."""
+    cfg = DBOF_FAITHFUL
+    opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
+    state = init_distill_state(cfg, opt)
+    rows = rows_of(batch(cfg, DBOF_EVAL_SEED), rank)
+    ev = build_sharded_eval_step(cfg, create_mesh(device="cpu"), top_k=TOP_K)(
+        state.student, *rows)
+    return {"dbof_faithful/eval": ev["host_pack"].numpy()}
+
+
+def run_infer(out_dir, data_dir):
+    """cli.infer over the eval shards at a global batch of 8, as two data
+    ranks and as one model group of two."""
+    from efficientvideoclassification_youtube8m_torch.cli import infer
+
+    for data, model in ((2, 1), (1, 2)):
+        infer.main(CLI_FLAGS + [
+            "--batch_size", "8", "--model_parallelism", str(model),
+            "--train_dir", os.path.join(out_dir, "train"),
+            "--input_data_pattern", os.path.join(data_dir, "eval-*.tfrecord"),
+            "--output_file", os.path.join(out_dir, f"infer-{data}x{model}.csv")])
+    return {}
+
+
 def run_cli(out_dir, data_dir):
     from efficientvideoclassification_youtube8m_torch.cli import eval as eval_cli
     from efficientvideoclassification_youtube8m_torch.cli import train, validate
@@ -192,9 +229,10 @@ def run_cli(out_dir, data_dir):
                              "--eval_data_pattern",
                              os.path.join(data_dir, "eval-*.tfrecord")]
     for name, binary in (("eval", eval_cli), ("validate", validate)):
-        epoch = binary.main(eval_argv)
-        out.update({f"cli_{name}/{k}": np.asarray(v) for k, v in epoch.items()
-                    if np.ndim(v) == 0})
+        for tag, extra in (("", []), ("_k3", ["--steps_per_dispatch", "3"])):
+            epoch = binary.main(eval_argv + extra)
+            out.update({f"cli_{name}{tag}/{k}": np.asarray(v)
+                        for k, v in epoch.items() if np.ndim(v) == 0})
     return out
 
 
@@ -207,6 +245,7 @@ def main():
     # tests/test_parallel.py's synced-BN comparison pins DBoF's frame
     # sampling to the even sampler: the ranks' sampling keys are
     # decorrelated on purpose and would differ from one program's anyway
+    sample_random_frames = frame_level.sample_random_frames
     frame_level.sample_random_frames = (
         lambda x, nf, k, rng: frame_level.sample_even_frames(x, nf, k))
     results = {}
@@ -215,7 +254,12 @@ def main():
     results.update(run_dbof(rank, sync=True))
     results.update(run_dbof(rank, sync=False))
     results.update(run_cli(out_dir, data_dir))
+    results.update(run_infer(out_dir, data_dir))
+    frame_level.sample_random_frames = sample_random_frames
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **results)
+    # each rank's own rows, which differ between the ranks
+    np.savez(os.path.join(out_dir, f"rank{rank}_rows.npz"),
+             **run_dbof_faithful_eval(rank))
     distributed.shutdown()
     print("WORKER_OK", rank, flush=True)
 

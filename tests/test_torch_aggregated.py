@@ -288,7 +288,6 @@ def test_reference_invocation_parses():
         "--model", "MoeModel", "--feature_names", "mean_rgb, mean_audio",
         "--feature_sizes", "1024, 128", "--batch_size", "1024", "--run_once", "True"])
     assert args.frame_features is False
-    flags.check_ported(args)
     cfg = flags.config_from_args(args)
     assert cfg.total_feature_size == 1152
     assert cfg.feature_names_list == ["mean_rgb", "mean_audio"]

@@ -25,7 +25,7 @@ from efficientvideoclassification_youtube8m_tpu.utils import summary as jsummary
 # the port's config: the JAX functions read the same fields (test_torch_summary_flags.py)
 from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
 from efficientvideoclassification_youtube8m_torch.train import checkpoint as tckpt
-from efficientvideoclassification_youtube8m_torch.train import msgpack_io
+from efficientvideoclassification_youtube8m_torch.train import msgpack_io, orbax_io
 from efficientvideoclassification_youtube8m_torch.train.optimizer import (
     _BUILDERS,
     make_optimizer,
@@ -235,11 +235,15 @@ def test_pointer_file_and_max_to_keep_match_jax(tmp_path):
     # variables after a state (tests/test_torch_tf_checkpoint.py)
     with pytest.raises(ValueError, match="TF-V2 bundle"):
         tckpt.read_checkpoint(str(dirs["port"] / "model.ckpt-40"))
-    (dirs["port"] / "model.ckpt-50").mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, orbax checkpoints"):
-        tckpt.restore_checkpoint(str(dirs["port"] / "model.ckpt-50"), None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, orbax checkpoints"):
-        tckpt.save_checkpoint(str(dirs["port"]), tree, 1, backend="orbax")
+    # an orbax directory beside the msgpack files: the newest step wins
+    # the pointer, and the directory reads back (tests/test_torch_orbax.py
+    # holds the format against orbax)
+    (dirs["port"] / "model.ckpt-50").mkdir()  # no _METADATA: not orbax's
+    with pytest.raises(orbax_io.OrbaxFormatError, match="not an orbax checkpoint"):
+        tckpt.read_checkpoint(str(dirs["port"] / "model.ckpt-50"))
+    path = tckpt.save_checkpoint(str(dirs["port"]), tree, 60, backend="orbax")
+    assert os.path.isdir(path) and tckpt.latest_checkpoint(str(dirs["port"])) == path
+    np.testing.assert_array_equal(tckpt.read_checkpoint(path)["w"], tree["w"])
 
 
 def _snapshot(state):

@@ -43,6 +43,7 @@ from efficientvideoclassification_youtube8m_torch.data import TFRecordReader, it
 from efficientvideoclassification_youtube8m_torch.train import msgpack_io
 from efficientvideoclassification_youtube8m_torch.train.checkpoint import (
     latest_checkpoint,
+    read_checkpoint,
     restore_checkpoint,
 )
 from efficientvideoclassification_youtube8m_torch.train.optimizer import make_optimizer
@@ -108,7 +109,7 @@ def dirs(tmp_path_factory):
 
 
 def _leaves(path, prefix=""):
-    tree = msgpack_io.load(path)
+    tree = read_checkpoint(path)
     out = {}
 
     def walk(node, name):
@@ -292,30 +293,49 @@ HOST_PATHS = "ROADMAP Queue 1, the host paths of the binaries"
     # not divide (the JAX create_mesh's ValueError); the id is the case's own
     pytest.param(train, ["--model_parallelism", "2"], "not divisible by model=2",
                  id=f"{train.__name__}-extra1-{TENSOR_PARALLEL}"),
-    (train, ["--checkpoint_format", "orbax"], ORBAX),
-    (eval_cli, ["--steps_per_dispatch", "3"], HOST_PATHS),
-    (validate, ["--steps_per_dispatch", "3"], HOST_PATHS),
+    # ported now (the ids are the cases' own): a run with the option is the
+    # run without it (None)
+    pytest.param(train, ["--checkpoint_format", "orbax"], None,
+                 id=f"{train.__name__}-extra2-{ORBAX}"),
+    pytest.param(eval_cli, ["--steps_per_dispatch", "3"], None,
+                 id=f"{eval_cli.__name__}-extra3-{HOST_PATHS}"),
+    pytest.param(validate, ["--steps_per_dispatch", "3"], None,
+                 id=f"{validate.__name__}-extra4-{HOST_PATHS}"),
 ])
 def test_07_unported_options_raise(dirs, tmp_path, binary, extra, match):
-    """The options the port does not cover raise, naming their ROADMAP
-    item. `--use_shardmap_train` (match None) is covered now: it names
-    the data-parallel step every run takes, so a run with it is the run
-    without it, bit for bit. `--model_parallelism 2` is ported: in one
-    process it raises the JAX package's ValueError for one device
+    """The options that were not ported. Each run with one (match None)
+    is the run without it: `--use_shardmap_train` names the data-parallel
+    step every run takes, and `--checkpoint_format orbax` writes an orbax
+    directory holding the msgpack file's state, bit for bit;
+    `--steps_per_dispatch 3` gives the epoch metrics of one batch a
+    launch (rank metrics bit-equal, avg_loss within 1e-6 relative, the
+    JAX CLI tests' ulp allowance). `--model_parallelism 2` is ported: in
+    one process it raises the JAX package's ValueError for one device
     (tests/test_torch_tensor_parallel.py runs it over two ranks)."""
     argv = TINY_FLAGS + ["--train_data_pattern", dirs["train_pattern"],
                          "--eval_data_pattern", dirs["eval_pattern"],
                          "--run_once", "true"]
-    if match is None:
+    if match is None and binary is train:
         runs = [binary.main(argv + extra + ["--train_dir", str(tmp_path / "flag")]),
                 binary.main(argv + ["--train_dir", str(tmp_path / "plain")])]
         got, want = (_leaves(latest_checkpoint(str(tmp_path / d))) for d in ("flag", "plain"))
         assert runs[0].global_step == runs[1].global_step > 0
+        assert sorted(got) == sorted(want)
         for key in want:
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        if "orbax" in extra:
+            assert os.path.isdir(latest_checkpoint(str(tmp_path / "flag")))
         return
-    error = ValueError if "--model_parallelism" in extra else NotImplementedError
-    with pytest.raises(error, match=match):
+    if match is None:
+        got, want = (binary.main(argv + ["--train_dir", dirs["train_dir"]] + e)
+                     for e in (extra, []))
+        assert sorted(got) == sorted(want)
+        for key in want:  # Hit@1, PERR, GAP, every AP
+            if key != "avg_loss":
+                np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        np.testing.assert_allclose(got["avg_loss"], want["avg_loss"], rtol=1e-6)
+        return
+    with pytest.raises(ValueError, match=match):
         binary.main(argv + ["--train_dir", dirs["train_dir"]] + extra)
 
 

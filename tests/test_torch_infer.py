@@ -68,8 +68,9 @@ def dirs(tmp_path_factory):
         lambda x: np.asarray(x) + rng.normal(scale=0.3, size=x.shape).astype(np.float32),
         state.params_student)
     train_dir = str(root / "model_finetune") + "/"
-    jax_save_checkpoint(train_dir, state.replace(params_student=params), 7)
-    return {"root": root, "train_dir": train_dir, "params": params,
+    state = state.replace(params_student=params)
+    jax_save_checkpoint(train_dir, state, 7)
+    return {"root": root, "train_dir": train_dir, "params": params, "state": state,
             "pattern": str(root / "test-*.tfrecord")}
 
 
@@ -238,15 +239,24 @@ def test_inspect_checkpoint_lists_the_same(dirs, tmp_path, capsys):
         port_out = capsys.readouterr().out
         jax_inspect.main(argv)
         assert port_out == capsys.readouterr().out
-    (tmp_path / "orbax_dir").mkdir()
-    with pytest.raises(NotImplementedError, match="orbax checkpoints"):
-        inspect_checkpoint.main(["--file_name", str(tmp_path / "orbax_dir")])
+    # an orbax directory the JAX package wrote: the same lines, values too
+    odir = jax_save_checkpoint(str(tmp_path / "orbax"), dirs["state"], 7,
+                               backend="orbax")
+    for argv in (["--file_name", odir],
+                 ["--file_name", odir, "--tensor_name", "rnn_l1/0/bias"]):
+        inspect_checkpoint.main(argv)
+        port_out = capsys.readouterr().out
+        jax_inspect.main(argv)
+        assert port_out == capsys.readouterr().out and "rnn_l1/0/bias" in port_out
 
 
 def test_infer_options(dirs, tmp_path):
     out = str(tmp_path / "x.csv")
-    with pytest.raises(NotImplementedError, match="host paths of the binaries"):
-        _run(infer, dirs, out, "--steps_per_dispatch", "3")
+    # K = 3: 13 videos are a stack of one full and one padded batch; the
+    # rows from the device top-k, as the JAX binary's at K = 3
+    _run(infer, dirs, out, "--steps_per_dispatch", "3")
+    _run(jax_infer, dirs, str(tmp_path / "jax.csv"), "--steps_per_dispatch", "3")
+    _assert_rows_agree(out, str(tmp_path / "jax.csv"), TOL_CSV)
     # the aggregated branch takes video-level models (tests/test_torch_aggregated.py)
     with pytest.raises(ValueError, match="frame-level model"):
         _run(infer, dirs, out, "--frame_features", "false")

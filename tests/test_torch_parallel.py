@@ -40,11 +40,15 @@ from efficientvideoclassification_youtube8m_torch.parallel import sharded_step
 from efficientvideoclassification_youtube8m_torch.train import step as tstep
 from efficientvideoclassification_youtube8m_torch.train.checkpoint import (
     latest_checkpoint,
+    read_checkpoint,
     restore_subtree,
+    save_checkpoint,
 )
+from efficientvideoclassification_youtube8m_torch.train.optimizer import make_optimizer
 from efficientvideoclassification_youtube8m_torch.train.state import (
     DistillState,
     StudentState,
+    init_distill_state,
     init_model,
     state_tree,
 )
@@ -110,7 +114,8 @@ def ranks(tmp_path_factory):
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"WORKER_OK {rank}" in out, out[-4000:]
     results = [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(worker.WORLD)]
-    return {"results": results, "out": out_dir, "data": data_dir}
+    rows = [dict(np.load(out_dir / f"rank{r}_rows.npz")) for r in range(worker.WORLD)]
+    return {"results": results, "rows": rows, "out": out_dir, "data": data_dir}
 
 
 def _single_distill(dtype):
@@ -290,12 +295,19 @@ def test_uneven_eval_shards_gather_every_row(ranks, kind):
     """cli.eval and cli.validate on two ranks whose shards hold 7 and 3
     videos: the dry rank feeds padded dummies, the gather drops only
     padding, and the epoch metrics are bit for bit those of one process
-    over the same batches."""
+    over the same batches, at one batch a launch and at three."""
     want, batches = _single_process_epoch(ranks, kind)
     assert batches == sum(-(-n // 2) for n in worker.EVAL_VIDEOS)
     for r0_r1 in ranks["results"]:
         for key in ("avg_hit_at_one", "avg_perr", "avg_loss", "gap"):
             assert float(r0_r1[f"cli_{kind}/{key}"]) == float(want[key]), key
+            # three batches a launch (the last stack padded with dummies):
+            # the same rank metrics, the mean loss within an f32 ulp's bar
+            got = float(r0_r1[f"cli_{kind}_k3/{key}"])
+            if key == "avg_loss":
+                np.testing.assert_allclose(got, float(want[key]), rtol=1e-6)
+            else:
+                assert got == float(want[key]), key
 
 
 def test_parse_tf_config_matches_jax():
@@ -359,3 +371,75 @@ def test_tf_config_start_up_times_out_instead_of_waiting(monkeypatch):
                                    timeout=datetime.timedelta(seconds=2))
         assert not torch.distributed.is_initialized()
 
+
+
+def test_dbof_faithful_eval_keys_are_the_global_batch(ranks):
+    """Two ranks' halves of DBoF's faithful-mode eval step against the JAX
+    sharded eval step over the whole batch on a 2-device virtual mesh,
+    whose frame-sampling key folds the GLOBAL batch's frame count and
+    whose draws are the global batch's: the same frame samples (top-k
+    classes equal, values and losses to f32 rounding). A rank that folds
+    its own half's frame count, as before, samples other frames."""
+    cfg = worker.DBOF_FAITHFUL
+    jo = jtrain.make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
+    jstate = jtrain.init_distill_state(cfg, jo)
+    mesh = jparallel.create_mesh(devices=jax.devices()[:2])
+    step = jparallel.build_sharded_eval_step(cfg, mesh, jstate.params_student,
+                                             top_k=worker.TOP_K)
+    feats, labels, nf = worker.batch(cfg, worker.DBOF_EVAL_SEED)
+    want = np.asarray(step(jstate.params_student,
+                           *jparallel.shard_batch(mesh, feats, labels, nf))["host_pack"])
+    got = [distributed.unpack_host_pack(r["dbof_faithful/eval"], None)
+           for r in ranks["rows"]]
+    full = distributed.unpack_host_pack(want, labels)
+    for key in ("topk_idx", "perr_precision"):
+        np.testing.assert_array_equal(np.concatenate([g[key] for g in got]),
+                                      full[key], err_msg=key)
+    for key in ("topk_val", "per_example_loss"):
+        np.testing.assert_allclose(np.concatenate([g[key] for g in got]), full[key],
+                                   rtol=RTOL, atol=LOSS_ATOL, err_msg=key)
+    # the old rule: one process's step on rank 0's half alone
+    opt = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
+    state = init_distill_state(cfg, opt)
+    half = worker.rows_of((feats, labels, nf), 0)
+    alone = tstep.build_eval_step(cfg, top_k=worker.TOP_K)(state.student, *half)
+    assert np.abs(alone["host_pack"].numpy()
+                  - ranks["rows"][0]["dbof_faithful/eval"]).max() > 1e-4
+
+
+def _one_process_infer(binary, train_dir, pattern, out):
+    binary.main(worker.CLI_FLAGS + [
+        "--batch_size", "8", "--train_dir", train_dir,
+        "--input_data_pattern", pattern, "--output_file", out])
+    with open(out, "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("layout", ["2x1", "1x2"])
+def test_infer_on_ranks_writes_one_process_csv(ranks, tmp_path, layout):
+    """cli.infer as two data ranks and as one model group of two: the
+    master's CSV is byte for byte one process's (the rows of every rank in
+    batch order), and holds the JAX binary's rows on its 8 virtual
+    devices to the CSV bar of tests/test_torch_infer.py."""
+    from efficientvideoclassification_youtube8m_tpu.cli import infer as jax_infer
+
+    from efficientvideoclassification_youtube8m_torch.cli import infer
+
+    with open(ranks["out"] / f"infer-{layout}.csv", "rb") as f:
+        got = f.read()
+    pattern, train_dir = str(ranks["data"] / "eval-*.tfrecord"), str(ranks["out"] / "train")
+    want = _one_process_infer(infer, train_dir, pattern, str(tmp_path / "one.csv"))
+    assert got == want and len(got.splitlines()) == 1 + sum(worker.EVAL_VIDEOS)
+    # the JAX binary restores a student-only checkpoint: the same leaves
+    tree = read_checkpoint(latest_checkpoint(train_dir))
+    student = {k: tree[k] for k in ("params_student", "opt_student", "global_step",
+                                    "dropout_keep_prob")}
+    save_checkpoint(str(tmp_path / "student"), student, int(tree["global_step"]))
+    jax_rows = _one_process_infer(jax_infer, str(tmp_path / "student"), pattern,
+                                  str(tmp_path / "jax.csv"))
+    for g, j in zip(got.decode().splitlines()[1:], jax_rows.decode().splitlines()[1:]):
+        gv, gp = g.split(",")
+        jv, jp = j.split(",")
+        assert gv == jv
+        np.testing.assert_allclose([float(x) for x in gp.split()[1::2]],
+                                   [float(x) for x in jp.split()[1::2]], atol=1e-5)

@@ -13,6 +13,7 @@ from efficientvideoclassification_youtube8m_tpu.serving import Predictor as JaxP
 from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
 from efficientvideoclassification_youtube8m_torch.ops import prng
 from efficientvideoclassification_youtube8m_torch.serving import Predictor, init_model
+from efficientvideoclassification_youtube8m_torch.train.orbax_io import OrbaxFormatError
 from efficientvideoclassification_youtube8m_torch.weights import to_jax_params
 
 torch.set_num_threads(1)
@@ -118,8 +119,10 @@ def test_unsupported_options_raise(tree, tmp_path):
     with pytest.raises(ValueError, match="requires HierarchicalLstmModel"):
         Predictor(CFG.replace(model="DbofModel"), tree, device="cpu",
                   sequence_parallel=True)
-    (tmp_path / "model.ckpt-5").mkdir()  # an orbax checkpoint directory
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a directory named as an orbax checkpoint, without orbax's metadata:
+    # the orbax reader's own error
+    (tmp_path / "model.ckpt-5").mkdir()
+    with pytest.raises(OrbaxFormatError, match="not an orbax checkpoint"):
         Predictor.from_checkpoint(str(tmp_path), CFG, device="cpu")
     with pytest.raises(ValueError):
         Predictor(CFG, tree, tower="both", device="cpu")

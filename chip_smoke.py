@@ -63,10 +63,10 @@ kernel's device time alone, the replay of a CUDA graph of one call
      counts) against the plain-scan Predictors, and the distill losses
      and gradients of the train kernels against the plain path;
   9. the five binaries through their `main(argv)`, each with the kernel
-     counts set to 0 just before it and checked just after: (a)
-     scripts/fidelity_check.py's run (10 synthetic videos a split at
-     flagship widths, batch 5, its canonical flags and its bands against
-     the reference's golden log), then validate, convert (the student
+     counts set to 0 just before it and checked just after: (a) the
+     port's scripts/fidelity_check.py's run (10 synthetic videos a split
+     at flagship widths, batch 5, its canonical flags and its bands
+     against the reference's golden log), then validate, convert (the student
      bit-equal), finetune and eval in bf16 and int8 (epoch metrics within
      2e-3); (c) on 9a's finetuned student and validate shards the
      inference binaries, with exact launch counts: cli.infer bf16 (its
@@ -147,7 +147,18 @@ kernel's device time alone, the replay of a CUDA graph of one call
      cli.eval, inspect_checkpoint and Predictor.from_checkpoint over the
      directory against the msgpack file; the committed JAX-written orbax
      directories (tests/fixtures/orbax_jax) read bit for bit through the
-     card's libzstd. Last, no module of jax, flax, msgpack or the JAX
+     card's libzstd;
+ 17. the port's bash drivers as a user runs them (scripts/run_train.sh,
+     run_validate.sh, run_convert_model.sh, run_finetune.sh, run_eval.sh
+     at their default directories, which chain, over 9b's shards joined
+     into one file a split), each exiting 0 and leaving its checkpoint,
+     backup and log file; each driver's argv (recorded by a fake python)
+     again in this process with its exact kernel launches (train 16 + 16,
+     validate 24, finetune 8 + 8, eval 12), the finetuned leaves, the
+     epoch lines and summaries and the train losses bit-equal to the
+     drivers'; then run_train_multihost.sh as one rank writing an orbax
+     directory, its losses equal to run_train.sh's; each driver's wall
+     and `time` seconds. Last, no module of jax, flax, msgpack or the JAX
      package is loaded and nothing was written into the JAX package's
      directory.
 
@@ -244,8 +255,9 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
     state_tree,
     student_state_from_distill,
 )
-from efficientvideoclassification_youtube8m_torch.scripts import acceptance_run
+from efficientvideoclassification_youtube8m_torch.scripts import acceptance_run, fidelity_check
 from efficientvideoclassification_youtube8m_torch.utils import profiling
+from efficientvideoclassification_youtube8m_torch.utils import summary as summary_lib
 from efficientvideoclassification_youtube8m_torch.train.step import (
     build_distill_train_step,
     build_eval_step,
@@ -1184,25 +1196,13 @@ def phase_routing():
 
 # ------------------------------------------- phase 9: the five binaries
 #
-# 9a is scripts/fidelity_check.py through the port's binaries: its data
-# (10 synthetic videos a split at flagship widths), its canonical flags
-# (:143-157) and its bands against the reference's golden log (GOLDEN and
-# check_trajectory, :38-41 and :67-110). Two flags are added that change
-# no number: every tick writes the summaries (the device histograms) and
-# every step saves a checkpoint through the async saver.
-FIDELITY_FLAGS = [
-    "--feature_names", "rgb, audio", "--feature_sizes", "1024, 128",
-    "--model", "HierarchicalLstmModel", "--batch_size", "5",
-    "--num_inputs_to_lstm", "20", "--lstm_layers", "2", "--every_n", "10",
-    "--num_epochs", "2", "--num_readers", "2", "--scan_unroll", "1",
-]
-FIDELITY_VIDEOS = 10
-GOLDEN = {
-    2: {"teacher": 1914.09, "l_rep": 1.16, "l_pred": 0.01, "l_ce": 1914.1},
-    4: {"teacher": 1908.12, "l_rep": 1.52, "l_pred": 0.01, "l_ce": 1913.41},
-}
-STEP_RE = re.compile(r"training step (\d+)\|.*Teacher_Loss: ([\d.]+)\| "
-                     r"L_REP: ([\d.]+)\| L_PRED: ([\d.]+)\| L_CE: ([\d.]+)")
+# 9a is the port's scripts/fidelity_check.py through the port's binaries:
+# its data (10 synthetic videos a split at flagship widths), its canonical
+# flags and its bands against the reference's golden log
+# (fidelity_check.GOLDEN, STEP_RE and check_trajectory, the JAX script's).
+# Two flags are added that change no number: every tick writes the
+# summaries (the device histograms) and every step saves a checkpoint
+# through the async saver.
 EVAL_RATE_RE = re.compile(r"Average examples processed in one second ([\d.]+)")
 # int8 against bf16 epoch metrics of one checkpoint: tests/test_quantize.py's
 # deploy-gate bar on Hit@1, PERR and GAP.
@@ -1265,31 +1265,6 @@ def run_binary(tag: str, main_fn, argv, expected, phase: str = "9"):
     return result, seconds, counts
 
 
-def check_trajectory(steps) -> None:
-    """scripts/fidelity_check.py's bands (:67-110) on the logged steps."""
-    s2, s4 = steps.get(2), steps.get(4)
-    if not (s2 and s4):
-        raise AssertionError(f"steps 2 and 4 not logged (got {sorted(steps)})")
-    log(f"[9] step 2: {s2} (golden {GOLDEN[2]}); step 4: {s4} (golden {GOLDEN[4]})")
-    drop = s2["teacher"] - s4["teacher"]
-    checks = [
-        (abs(s2["teacher"] - GOLDEN[2]["teacher"]) < 2.0,
-         f"step-2 Teacher_Loss {s2['teacher']:.2f} within 2.0 of {GOLDEN[2]['teacher']}"),
-        (abs(s2["l_ce"] - GOLDEN[2]["l_ce"]) < 2.0,
-         f"step-2 L_CE {s2['l_ce']:.2f} within 2.0 of {GOLDEN[2]['l_ce']}"),
-        (1.0 < drop < 20.0, f"step-4 teacher CE decrease {drop:.2f} in (1, 20)"),
-        (s4["l_ce"] < s2["l_ce"], f"step-4 L_CE {s4['l_ce']:.2f} < step-2 {s2['l_ce']:.2f}"),
-        (0.0 < s2["l_rep"] < 3.0, f"step-2 L_REP {s2['l_rep']:.2f} in (0, 3)"),
-        (s4["l_rep"] > s2["l_rep"], f"L_REP grows {s2['l_rep']:.2f} -> {s4['l_rep']:.2f}"),
-        (s2["l_pred"] < 0.2 and s4["l_pred"] < 0.2,
-         f"L_PRED near zero ({s2['l_pred']}, {s4['l_pred']})"),
-    ]
-    for ok, msg in checks:
-        log(f"[9]   [{'ok' if ok else 'FAIL'}] {msg}")
-    if not all(ok for ok, _ in checks):
-        raise AssertionError("the fidelity bands of scripts/fidelity_check.py failed")
-
-
 def flat_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}
@@ -1299,19 +1274,26 @@ def flat_leaves(tree, prefix=""):
     return {prefix[:-1]: tree}
 
 
+def same_leaves(a: dict, b: dict, what: str) -> int:
+    """Every leaf of two trees bit-equal (dtype, shape and bytes). Returns
+    the number of leaves compared."""
+    a, b = flat_leaves(a), flat_leaves(b)
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: other leaves")
+    for name, value in a.items():
+        value, other = np.asarray(value), np.asarray(b[name])
+        if other.dtype != value.dtype or other.shape != value.shape or not np.array_equal(
+                value.reshape(-1).view(np.uint8), other.reshape(-1).view(np.uint8)):
+            raise AssertionError(f"{what}: {name} is not bit-equal")
+    return len(a)
+
+
 def check_same_student(trained_path: str, converted_path: str) -> int:
     """Every student parameter of the converted file bit-equal to the
     trained file's. Returns the number of tensors compared."""
-    trained = flat_leaves(msgpack_io.load(trained_path)["params_student"])
-    converted = flat_leaves(msgpack_io.load(converted_path)["params_student"])
-    if trained.keys() != converted.keys():
-        raise AssertionError("the converted student has other parameters")
-    for name, value in trained.items():
-        other = converted[name]
-        if other.dtype != value.dtype or not np.array_equal(
-                other.view(np.uint8), value.view(np.uint8)):
-            raise AssertionError(f"converted student {name} is not bit-equal")
-    return len(trained)
+    return same_leaves(msgpack_io.load(trained_path)["params_student"],
+                       msgpack_io.load(converted_path)["params_student"],
+                       "the converted student")
 
 
 def read_scalars(logdir: str, tag: str):
@@ -1356,17 +1338,17 @@ def phase_pipeline_fidelity(root: str):
     for split, seed in (("train", 0), ("validate", 1)):
         port_data.write_synthetic_frame_shard(
             os.path.join(data_dir, f"{split}-0000.tfrecord"),
-            num_videos=FIDELITY_VIDEOS, seed=seed)
+            num_videos=fidelity_check.NUM_VIDEOS, seed=seed)
     train_pattern = os.path.join(data_dir, "train*.tfrecord")
     eval_pattern = os.path.join(data_dir, "validate*.tfrecord")
     train_dir = os.path.join(root, "model_train") + "/"
     levels = 4  # wrapper calls per tower forward: 2 levels x 2 layers
-    batches = FIDELITY_VIDEOS // 5  # a split per epoch at batch 5
+    batches = fidelity_check.NUM_VIDEOS // 5  # a split per epoch at batch 5
     seconds = {}
 
-    with LogCapture("train", STEP_RE) as capture:
+    with LogCapture("train", fidelity_check.STEP_RE) as capture:
         state, seconds["train"], _ = run_binary(
-            "9a train", train_cli.main, FIDELITY_FLAGS + [
+            "9a train", train_cli.main, fidelity_check.FLAGS + [
                 "--train_dir", train_dir, "--train_data_pattern", train_pattern,
                 "--start_new_model", "true", "--save_summaries_secs", "0",
                 "--save_model_secs", "0"],
@@ -1374,7 +1356,9 @@ def phase_pipeline_fidelity(root: str):
              "lstm_train_bwd": 2 * levels * 2 * batches})
     steps = {int(m[0]): dict(zip(("teacher", "l_rep", "l_pred", "l_ce"),
                                  map(float, m[1:]))) for m in capture.matches}
-    check_trajectory(steps)
+    log("[9] the bands of scripts/fidelity_check.py on steps 2 and 4:")
+    if not fidelity_check.check_trajectory(steps):
+        raise AssertionError("the fidelity bands of scripts/fidelity_check.py failed")
     trained = checkpoint.latest_checkpoint(train_dir)
     want_step = 2 * 2 * batches  # 2 epochs, the step advances 2 a batch
     if state.global_step != want_step or not trained.endswith(
@@ -1387,7 +1371,7 @@ def phase_pipeline_fidelity(root: str):
     del state
 
     epoch, seconds["validate"], _ = run_binary(
-        "9a validate", validate_cli.main, FIDELITY_FLAGS + [
+        "9a validate", validate_cli.main, fidelity_check.FLAGS + [
             "--train_dir", train_dir, "--eval_data_pattern", eval_pattern,
             "--run_once", "true"],
         {"lstm_chunk_scan": 2 * levels * batches})
@@ -1395,8 +1379,8 @@ def phase_pipeline_fidelity(root: str):
         raise AssertionError(f"validate epoch {epoch}")
 
     converted, seconds["convert"], _ = run_binary(
-        "9a convert", convert_cli.main, FIDELITY_FLAGS + ["--train_dir", train_dir], {})
-    finetune_dir = train_dir.replace("train", "") + "finetune/"
+        "9a convert", convert_cli.main, fidelity_check.FLAGS + ["--train_dir", train_dir], {})
+    finetune_dir = convert_cli.finetune_dir(train_dir)
     if converted != os.path.join(finetune_dir, "model.ckpt-0.msgpack"):
         raise AssertionError(f"convert wrote {converted}")
     n = check_same_student(trained, converted)
@@ -1405,7 +1389,7 @@ def phase_pipeline_fidelity(root: str):
         f"{os.path.getsize(converted)} B")
 
     _, seconds["finetune"], _ = run_binary(
-        "9a finetune", finetune_cli.main, FIDELITY_FLAGS + [
+        "9a finetune", finetune_cli.main, fidelity_check.FLAGS + [
             "--train_dir", finetune_dir, "--train_data_pattern", train_pattern,
             "--num_epochs", "1", "--save_summaries_secs", "0"],
         {"lstm_train_fwd": levels * batches, "lstm_train_bwd": levels * batches})
@@ -1416,7 +1400,7 @@ def phase_pipeline_fidelity(root: str):
     runs = {}
     for quant, kernel in (("none", "lstm_chunk_scan"), ("int8", "lstm_chunk_scan_int8")):
         runs[quant], seconds[f"eval {quant}"], _ = run_binary(
-            f"9a eval --quantize {quant}", eval_cli.main, FIDELITY_FLAGS + [
+            f"9a eval --quantize {quant}", eval_cli.main, fidelity_check.FLAGS + [
                 "--train_dir", finetune_dir, "--eval_data_pattern", eval_pattern,
                 "--run_once", "true", "--quantize", quant],
             {kernel: levels * batches})
@@ -1514,14 +1498,15 @@ def phase_pipeline_infer(root: str, fidelity: dict):
     """9c: cli.infer bf16 and int8, cli.inference_bias, cli.max_ensemble,
     cli.inspect_checkpoint and cli.hash_check."""
     finetune_dir, eval_pattern = fidelity["finetune_dir"], fidelity["eval_pattern"]
-    cfg = flags.config_from_args(flags.base_parser("").parse_args(FIDELITY_FLAGS))
+    cfg = flags.config_from_args(flags.base_parser("").parse_args(fidelity_check.FLAGS))
     levels, batches, top_k = 2 * cfg.lstm_layers, fidelity["batches"], cfg.top_k
     loader = port_data.FrameDataLoader(
-        eval_pattern, batch_size=FIDELITY_VIDEOS, feature_names=cfg.feature_names_list,
+        eval_pattern, batch_size=fidelity_check.NUM_VIDEOS, feature_names=cfg.feature_names_list,
         feature_sizes=cfg.feature_sizes_list, max_frames=cfg.max_num_frames,
         vocab_size=cfg.num_classes, num_epochs=1, shuffle=False)
     (batch,) = list(loader)
-    argv = FIDELITY_FLAGS + ["--train_dir", finetune_dir, "--input_data_pattern", eval_pattern]
+    argv = fidelity_check.FLAGS + ["--train_dir", finetune_dir,
+                                   "--input_data_pattern", eval_pattern]
     csv = {name: os.path.join(root, f"pred_{name}.csv") for name in ("bf16", "int8", "bias")}
     for name, quant, kernel in (("bf16", "none", "lstm_chunk_scan"),
                                 ("int8", "int8", "lstm_chunk_scan_int8")):
@@ -1591,9 +1576,9 @@ def phase_pipeline_infer(root: str, fidelity: dict):
         f"shard's md5, 1 on a wrong one")
 
 
-def phase_pipeline_scale(root: str, smi: str, step_rate: float):
-    """9b: cli.train at batch 256, checkpoint I/O of its state, cli.eval
-    bf16 and int8 of its student."""
+def write_scale_shards(root: str) -> str:
+    """9b's shards under root/scale: SHARDS of each split. Returns the
+    directory."""
     data_dir = os.path.join(root, "scale")
     os.makedirs(data_dir)
     for split, videos, seed in (("train", SCALE_TRAIN, 10), ("validate", SCALE_EVAL, 20)):
@@ -1601,6 +1586,13 @@ def phase_pipeline_scale(root: str, smi: str, step_rate: float):
             port_data.write_synthetic_frame_shard(
                 os.path.join(data_dir, f"{split}-{s:04d}.tfrecord"),
                 num_videos=videos // SHARDS, seed=seed + s)
+    return data_dir
+
+
+def phase_pipeline_scale(root: str, smi: str, step_rate: float):
+    """9b: cli.train at batch 256, checkpoint I/O of its state, cli.eval
+    bf16 and int8 of its student."""
+    data_dir = write_scale_shards(root)
     cfg = TrainConfig()
     B, levels = cfg.batch_size, 2 * cfg.lstm_layers
     train_steps = 2 * SCALE_TRAIN // B
@@ -2084,7 +2076,7 @@ def phase_zoo_heads(root: str, smi: str) -> dict:
         del state, step
     train_dir = os.path.join(root, "zoo_train") + "/"
     steps = 2 * SCALE_TRAIN // TrainConfig().batch_size
-    with LogCapture("train", STEP_RE) as capture:
+    with LogCapture("train", fidelity_check.STEP_RE) as capture:
         state, seconds, _ = run_binary("12b train SingleHiddenLayerModelDropout", train_cli.main, [
             "--train_dir", train_dir, "--num_epochs", "2", "--start_new_model", "true",
             "--train_data_pattern", os.path.join(root, "scale", "train*.tfrecord"),
@@ -2831,7 +2823,7 @@ def tp_binaries(root: str) -> dict:
     train_dir = os.path.join(root, "tp_train") + "/"
     out = {}
     t0 = time.perf_counter()
-    with LogCapture("train", STEP_RE) as steps:
+    with LogCapture("train", fidelity_check.STEP_RE) as steps:
         state, out["train_launches"] = counted(lambda: train_cli.main(
             tp_train_argv(root, train_dir) + ["--model_parallelism", "2"]))
     out["train_s"] = time.perf_counter() - t0
@@ -2933,7 +2925,8 @@ def check_tp_step(tag: str, ranks: list) -> dict:
 
 
 def logged_losses(steps) -> dict:
-    """{step: (Teacher_Loss, L_REP, L_PRED, L_CE)} of STEP_RE's matches."""
+    """{step: (Teacher_Loss, L_REP, L_PRED, L_CE)} of fidelity_check.STEP_RE's
+    matches."""
     return {int(m[0]): tuple(map(float, m[1:])) for m in steps}
 
 
@@ -2945,7 +2938,7 @@ def check_tp_train(root: str, cli: dict) -> dict:
     floored at 1e-3 of the largest, as `tp_step` holds one step."""
     one_dir = os.path.join(root, "tp_one") + "/"
     argv = tp_train_argv(root, one_dir)
-    with LogCapture("train", STEP_RE) as steps:
+    with LogCapture("train", fidelity_check.STEP_RE) as steps:
         _, seconds, counts = run_binary("15b cli.train, one process", train_cli.main, argv,
                                         cli["train_launches"], phase="15")
     want, got = logged_losses(steps.matches), logged_losses(cli["steps"])
@@ -3264,6 +3257,209 @@ def phase_orbax(root: str, smi: str) -> dict:
     return counts
 
 
+# ------------------------------------------ phase 17: the drivers through bash
+#
+# The port's five drivers and its launcher (efficientvideoclassification_
+# youtube8m_torch/scripts/*.sh) run through bash, as a user runs them: the
+# reference's flags at flagship width and batch 256, from a directory that
+# holds ./yt8m/. run_train.sh (1 epoch of 512 videos: 2 distill steps),
+# run_validate.sh, run_convert_model.sh, run_finetune.sh (2 steps) and
+# run_eval.sh run at their default directories, which chain; then
+# run_train_multihost.sh as one rank (NCCL refuses two ranks on one card)
+# writes an orbax directory. The data are 9b's shards, each split's four
+# in one file: one reader then takes the file whole, so the drivers'
+# racing readers give the order that --deterministic_input pins.
+# A subprocess's kernel launches cannot be counted from here, so each
+# driver's argv (recorded by a fake python first on PATH) also runs in
+# this process through run_binary, from a twin directory of the same
+# layout, with --deterministic_input: the twin's counts are the path's,
+# and the drivers' results are held against the twin's bit for bit (the
+# run is deterministic on the card: scripts/acceptance_run.py's record).
+DRIVERS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "efficientvideoclassification_youtube8m_torch", "scripts")
+# (driver, its binary) in the pipeline's order
+DRIVERS = (("run_train.sh", train_cli), ("run_validate.sh", validate_cli),
+           ("run_convert_model.sh", convert_cli), ("run_finetune.sh", finetune_cli),
+           ("run_eval.sh", eval_cli))
+TRAIN_DIR_DEFAULT = "model_HLSTM_TeaStud_every10_train"
+FT_DIR_DEFAULT = "model_HLSTM_TeaStud_every10_finetune"
+MULTIHOST_DIR = "model_multihost"
+# bash's `time` line (TIMEFORMAT unset)
+TIME_RE = re.compile(r"^real\s+(\d+)m([\d.]+)s$", re.M)
+EPOCH_LINE_RE = re.compile(r"epoch/eval number \d+ \| .*")
+EPOCH_TAGS = ("Avg_Hit@1", "Avg_Perr", "GAP", "MAP", "Avg_Loss")
+FAKE_PYTHON = '#!/bin/bash\nprintf "%s\\0" "$@" > "$ARGV_FILE"\n'
+
+
+def driver_env(**extra) -> dict:
+    """The caller's environment with the checkout on PYTHONPATH (the
+    drivers run `python -m` from their own directory) and `extra`."""
+    env = {k: v for k, v in os.environ.items() if k != "TIMEFORMAT"}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [repo, env.get("PYTHONPATH")]))
+    env.update(extra)
+    return env
+
+
+def driver_argv(name: str, work: str, env: dict) -> list:
+    """The argv that the driver `name` gives its python: the driver run in
+    `work` with a fake python first on PATH that records it."""
+    bin_dir = os.path.join(work, "bin")
+    os.makedirs(bin_dir)
+    fake = os.path.join(bin_dir, "python")
+    with open(fake, "w") as f:
+        f.write(FAKE_PYTHON)
+    os.chmod(fake, 0o755)
+    argv_file = os.path.join(work, "argv")
+    subprocess.run(["bash", os.path.join(DRIVERS_DIR, name)], cwd=work, check=True,
+                   capture_output=True, timeout=60, env=dict(
+                       env, PATH=bin_dir + os.pathsep + env["PATH"], ARGV_FILE=argv_file))
+    with open(argv_file, "rb") as f:
+        return f.read().decode().split("\0")[:-1]
+
+
+def run_driver(name: str, cwd: str, env: dict):
+    """`bash name` in `cwd`, which must exit 0. Returns (its stdout and
+    stderr, its wall seconds, the seconds of its `time` line)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(["bash", os.path.join(DRIVERS_DIR, name)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise AssertionError(f"{name} exited {proc.returncode}: {out[-4000:]}")
+    ((minutes, seconds),) = TIME_RE.findall(proc.stderr)
+    return out, wall, 60 * int(minutes) + float(seconds)
+
+
+def epoch_scalars(train_dir: str) -> dict:
+    """{tag: {step: f32 value}} of the eval binaries' epoch summaries."""
+    return {tag: read_scalars(os.path.join(train_dir, "eval"), f"Epoch/Eval_{tag}")
+            for tag in EPOCH_TAGS}
+
+
+def expect_files(base: str, names, what: str) -> None:
+    missing = [n for n in names if not glob.glob(os.path.join(base, n))]
+    if missing:
+        raise AssertionError(f"{what}: {missing} missing under {base} "
+                             f"(there: {sorted(os.listdir(base))})")
+
+
+def phase_drivers(root: str, smi: str) -> dict:
+    """17: the five drivers and the one-rank launcher through bash, each
+    driver's argv again in this process; returns the twin's launches by
+    driver."""
+    t_phase = time.perf_counter()
+    base = os.path.join(root, "drivers")
+    work, twin = os.path.join(base, "run"), os.path.join(base, "twin")
+    data = os.path.join(work, "yt8m")
+    os.makedirs(data)
+    os.makedirs(twin)
+    for split in ("train", "validate"):
+        with open(os.path.join(data, f"{split}-0000.tfrecord"), "wb") as out:
+            for path in sorted(glob.glob(os.path.join(root, "scale", f"{split}-*.tfrecord"))):
+                with open(path, "rb") as f:
+                    shutil.copyfileobj(f, out)
+    os.symlink(data, os.path.join(twin, "yt8m"))
+    env = driver_env(EPOCH="1")
+    argvs = {name: driver_argv(name, os.path.join(base, "argv", name), env)
+             for name, _ in DRIVERS}
+    cfg = TrainConfig()
+    levels, B = 2 * cfg.lstm_layers, cfg.batch_size
+    steps, eval_batches = SCALE_TRAIN // B, math.ceil(SCALE_EVAL / B)
+    expected = {
+        "run_train.sh": {"lstm_train_fwd": 2 * levels * steps,
+                         "lstm_train_bwd": 2 * levels * steps},
+        "run_validate.sh": {"lstm_chunk_scan": 2 * levels * eval_batches},
+        "run_convert_model.sh": {},
+        "run_finetune.sh": {"lstm_train_fwd": levels * steps, "lstm_train_bwd": levels * steps},
+        "run_eval.sh": {"lstm_chunk_scan": levels * eval_batches},
+    }
+    times, outputs, results, launches = {}, {}, {}, {}
+    for name, binary in DRIVERS:
+        argv = argvs[name]
+        if argv[:3] != ["-u", "-m", binary.__name__]:
+            raise AssertionError(f"{name} runs {argv[:3]}, not {binary.__name__}")
+        outputs[name], wall, timed = run_driver(name, work, env)
+        with LogCapture("train", fidelity_check.STEP_RE) as capture, contextlib.chdir(twin):
+            results[name], twin_s, launches[name] = run_binary(
+                f"17 {name}'s argv in this process", binary.main,
+                argv[3:] + ["--deterministic_input", "true"], expected[name], phase="17")
+        times[name] = (wall, timed, twin_s)
+        log(f"[17] {name}: exit 0, {wall:.3f} s wall, `time` real {timed:.3f} s; its argv "
+            f"in this process {twin_s:.3f} s")
+        if name == "run_train.sh":
+            train_dir = os.path.join(work, TRAIN_DIR_DEFAULT)
+            expect_files(train_dir, ["model.ckpt-4.msgpack", "checkpoint"], name)
+            expect_files(os.path.join(train_dir, "backup_epc1"), [
+                "model.ckpt-4.msgpack", "checkpoint", "events.out.tfevents.*"], name)
+            if glob.glob(os.path.join(train_dir, "events*")):
+                raise AssertionError(f"{name} left its events files in {train_dir}")
+            with open(os.path.join(work, "output_HLSTM_TeaStud_every10_after_1epc")) as f:
+                losses = [m.groups() for m in fidelity_check.STEP_RE.finditer(f.read())]
+            if len(losses) != steps or losses != capture.matches:
+                raise AssertionError(f"{name} logged {losses}, its twin {capture.matches}")
+            if results[name].global_step != 2 * steps:
+                raise AssertionError(f"the twin ended at {results[name].global_step}")
+            results[name] = losses
+            log(f"[17] {name}: checkpoint, backup_epc1 and its log in place; the logged "
+                f"losses of its {steps} steps equal the twin's")
+        elif name in ("run_validate.sh", "run_eval.sh"):
+            model = TRAIN_DIR_DEFAULT if name == "run_validate.sh" else FT_DIR_DEFAULT
+            lines = EPOCH_LINE_RE.findall(outputs[name])
+            want = summary_lib.add_epoch_summary(None, results[name]["epoch_id"], results[name])
+            got, mine = (epoch_scalars(os.path.join(d, model)) for d in (work, twin))
+            if lines != [want] or got != mine or any(
+                    len(v) != 1 for v in got.values()):
+                raise AssertionError(f"{name}: epoch {lines} against {want}; summaries "
+                                     f"{got} against {mine}")
+            log(f"[17] {name}: its epoch line and its epoch summaries (f32) equal the "
+                f"twin's bit for bit: {want}")
+        elif name == "run_convert_model.sh":
+            expect_files(work, ["output_HLSTM_TeaStud_every10_convertModel"], name)
+            want = os.path.join(FT_DIR_DEFAULT, "model.ckpt-0.msgpack")
+            if os.path.relpath(results[name], ".") != want or not os.path.exists(
+                    os.path.join(work, want)):
+                raise AssertionError(f"{name} wrote {results[name]}, not ./{want}")
+            # the train checkpoints are read by nothing after convert
+            for d in (work, twin):
+                shutil.rmtree(os.path.join(d, TRAIN_DIR_DEFAULT))
+        elif name == "run_finetune.sh":
+            ft_dir = os.path.join(work, FT_DIR_DEFAULT)
+            expect_files(ft_dir, ["model.ckpt-2.msgpack", "checkpoint"], name)
+            expect_files(os.path.join(ft_dir, "backup_epc1"), [
+                "model.ckpt-2.msgpack", "checkpoint", "train/events.out.tfevents.*"], name)
+            expect_files(work, ["output_HLSTM_TeaStud_every10_finetune_after_1epc"], name)
+            n = same_leaves(*(msgpack_io.load(os.path.join(d, "model.ckpt-2.msgpack"))
+                              for d in (ft_dir, os.path.join(twin, FT_DIR_DEFAULT))),
+                            f"{name}'s finetuned checkpoint against the twin's")
+            results[name] = None  # the twin's state
+            log(f"[17] {name}: checkpoint, backup_epc1 and its log in place; the "
+                f"finetuned checkpoint's {n} leaves bit-equal to the twin's")
+    shutil.rmtree(twin)
+
+    env = driver_env(NUM_HOSTS="1", NPROC_PER_HOST="1", BATCH_SIZE="256",
+                     TRAIN_DIR=f"./{MULTIHOST_DIR}")
+    out, wall, timed = run_driver("run_train_multihost.sh", work, env)
+    times["run_train_multihost.sh"] = (wall, timed, None)
+    path = checkpoint.latest_checkpoint(os.path.join(work, MULTIHOST_DIR))
+    if path is None or not os.path.isdir(path) or not path.endswith("model.ckpt-4"):
+        raise AssertionError(f"run_train_multihost.sh left {path}")
+    losses = [m.groups() for m in fidelity_check.STEP_RE.finditer(out)]
+    if losses != results["run_train.sh"]:
+        raise AssertionError(f"the launcher logged {losses}, run_train.sh "
+                             f"{results['run_train.sh']}")
+    log("[17] run_train_multihost.sh (NUM_HOSTS=1 NPROC_PER_HOST=1 BATCH_SIZE=256): "
+        f"exit 0, {wall:.3f} s wall, `time` real {timed:.3f} s; orbax directory "
+        f"{os.path.basename(path)} ({dir_bytes(path)} B); its logged losses equal "
+        "run_train.sh's")
+    shutil.rmtree(base)
+    log("[17] driver seconds (wall, `time` real, its argv in this process): " + "; ".join(
+        f"{name} {w:.3f}, {t:.3f}" + (f", {i:.3f}" if i is not None else "")
+        for name, (w, t, i) in times.items()) + f" ({smi})")
+    log(f"[17] phase 17 wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
 
 def jax_package_files():
     """The files under the JAX package's directory (beside this script),
@@ -3313,6 +3509,7 @@ def main() -> None:
         stacked_launches = phase_stacked(root, smi)
         orbax_launches = phase_orbax(root, smi)
         log(f"[16] phase 16 wall {time.perf_counter() - t0:.1f} s")
+        driver_launches = phase_drivers(root, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(TRACE_DIR, ignore_errors=True)
@@ -3322,8 +3519,8 @@ def main() -> None:
         raise AssertionError(f"the port imported {loaded}")
     if jax_package_files() != jax_files:
         raise AssertionError("the run wrote into the JAX package's directory")
-    log("[16] no module of jax, flax, msgpack or the JAX package loaded; nothing "
-        "written into the JAX package's directory (phases 1-16)")
+    log("[17] no module of jax, flax, msgpack or the JAX package loaded; nothing "
+        "written into the JAX package's directory (phases 1-17)")
     # The line's times are at student_L1 (T=6, B=1280, H=1024), the
     # student's first layer at batch 256. "ms" and "plain_ms" are eager
     # calls, "graph_ms" the kernel's graph replay. library_ms is cuDNN's
@@ -3370,6 +3567,9 @@ def main() -> None:
                  for tag, counts in stacked_launches.items()}
         paths["train --checkpoint_format orbax"] = orbax_launches[name]
         kernels[-1]["phase16_launches"] = {p: n for p, n in paths.items() if n}
+        # phase 17: each driver's argv run in this process
+        kernels[-1]["phase17_launches"] = {d: counts[name] for d, counts
+                                           in driver_launches.items() if counts[name]}
     log(f"[13] interop: export {interop['export_gib_s']:.2f} GiB/s, import "
         f"{interop['import_gib_s']:.2f} GiB/s of a {interop['bundle_bytes']} B bundle; "
         f"chunked msgpack {chunked['bytes']} B, save {chunked['save_gib_s']:.2f} GiB/s, "

@@ -33,6 +33,16 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
 logger = logging.getLogger("convert")
 
 
+def finetune_dir(train_dir: str) -> str:
+    """The reference's finetune directory of `train_dir`:
+    `train_dir.replace('train', '') + 'finetune/'`, every "train" of the
+    path dropped (train_convert_model.py:398). From
+    `./model_HLSTM_TeaStud_every10_train` it is
+    `./model_HLSTM_TeaStud_every10_finetune/`; a trailing slash would
+    leave `.../every10_/finetune/`."""
+    return train_dir.replace("train", "") + "finetune/"
+
+
 def convert(args) -> str:
     cfg = flags_lib.config_from_args(args)
     device = flags_lib.resolve_device(args)
@@ -46,9 +56,9 @@ def convert(args) -> str:
     restore_checkpoint(ckpt, state)
 
     student_state = student_state_from_distill(state, optimizer)
-    finetune_dir = cfg.train_dir.replace("train", "") + "finetune/"
-    os.makedirs(finetune_dir, exist_ok=True)
-    path = save_checkpoint(finetune_dir, student_state, 0,
+    out_dir = finetune_dir(cfg.train_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    path = save_checkpoint(out_dir, student_state, 0,
                            backend=args.checkpoint_format)
     logger.info("Saved standalone student checkpoint to %s", path)
 

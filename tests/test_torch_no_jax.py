@@ -44,7 +44,8 @@ def test_port_imports_no_jax():
                  "cli.train", "cli.validate", "cli.convert", "cli.finetune",
                  "cli.eval", "cli.infer", "cli.inference_bias",
                  "cli.max_ensemble", "cli.inspect_checkpoint",
-                 "cli.hash_check", "scripts.acceptance_run", "serving"):
+                 "cli.hash_check", "scripts.acceptance_run",
+                 "scripts.fidelity_check", "serving"):
         assert f"{port.__name__}.{name}" in modules
     out = subprocess.run([sys.executable, "-c", CHECK, *modules], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -69,3 +70,22 @@ def test_source_imports_nothing_of_the_jax_package(path):
     names = [n for n in _imported_names(path)
              if n.split(".")[0] in (JAX_PACKAGE, "jax", "jaxlib", "flax")]
     assert not names, f"{path.relative_to(ROOT)} imports {names}"
+
+
+DRIVERS = sorted(Path(port.__path__[0]).rglob("*.sh"))
+
+
+def test_the_port_has_its_drivers():
+    assert [p.name for p in DRIVERS] == sorted([
+        "run_train.sh", "run_validate.sh", "run_convert_model.sh",
+        "run_finetune.sh", "run_eval.sh", "run_train_multihost.sh"])
+
+
+@pytest.mark.parametrize("path", DRIVERS, ids=lambda p: str(p.relative_to(ROOT)))
+def test_driver_names_nothing_of_the_jax_package(path):
+    """The port's shell drivers run the port's binaries only: the JAX
+    package's name appears nowhere, and no command names jax."""
+    text = path.read_text()
+    assert JAX_PACKAGE not in text
+    commands = [line for line in text.splitlines() if not line.lstrip().startswith("#")]
+    assert not [line for line in commands if "jax" in line.lower()]

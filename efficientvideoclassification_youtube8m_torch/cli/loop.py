@@ -25,6 +25,7 @@ from collections import deque
 import torch
 
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
+from efficientvideoclassification_youtube8m_torch.utils import profiling
 
 
 def device_prefetch(loader, device: torch.device, depth: int = 1,
@@ -43,14 +44,17 @@ def device_prefetch(loader, device: torch.device, depth: int = 1,
     stream = torch.cuda.Stream(device) if cuda else None
     pending: deque = deque()
 
-    def send(batch):
-        host = [torch.from_numpy(a) for a in
-                (batch.features, batch.labels, batch.num_frames)]
-        if not cuda:
-            return host, None
-        with torch.cuda.stream(stream):
-            dev = [t.pin_memory().to(device, non_blocking=True) for t in host]
-            return dev, stream.record_event()
+    def send(batch, index):
+        with profiling.annotate("prefetch.h2d", index):
+            host = [torch.from_numpy(a) for a in
+                    (batch.features, batch.labels, batch.num_frames)]
+            if not cuda:
+                return host, None
+            with torch.cuda.stream(stream):
+                with profiling.annotate("prefetch.pin", index):
+                    pinned = [t.pin_memory() for t in host]
+                dev = [t.to(device, non_blocking=True) for t in pinned]
+                return dev, stream.record_event()
 
     def receive(item):
         (dev, event), kept = item
@@ -61,8 +65,8 @@ def device_prefetch(loader, device: torch.device, depth: int = 1,
                 t.record_stream(current)
         return tuple(dev), kept
 
-    for batch in loader:
-        pending.append((send(batch), host_keep(batch)))
+    for index, batch in enumerate(loader):
+        pending.append((send(batch, index), host_keep(batch)))
         if len(pending) > depth:
             yield receive(pending.popleft())
     while pending:
@@ -81,20 +85,22 @@ class HostFetch:
     def __init__(self, out: dict, keys=None):
         self._event = None
         self._host = {}
-        for key in out if keys is None else keys:
-            value = out[key]
-            if isinstance(value, torch.Tensor) and value.is_cuda:
-                buf = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
-                value = buf.copy_(value, non_blocking=True)
-                if self._event is None:
-                    self._event = torch.cuda.Event()
-            self._host[key] = value
-        if self._event is not None:
-            self._event.record()
+        with profiling.annotate("fetch.enqueue"):
+            for key in out if keys is None else keys:
+                value = out[key]
+                if isinstance(value, torch.Tensor) and value.is_cuda:
+                    buf = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+                    value = buf.copy_(value, non_blocking=True)
+                    if self._event is None:
+                        self._event = torch.cuda.Event()
+                self._host[key] = value
+            if self._event is not None:
+                self._event.record()
 
     def get(self) -> dict:
-        if self._event is not None:
-            self._event.synchronize()
+        with profiling.annotate("fetch.wait"):
+            if self._event is not None:
+                self._event.synchronize()
         return self._host
 
 

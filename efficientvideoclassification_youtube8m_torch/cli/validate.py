@@ -39,6 +39,7 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
     DistillState,
     init_model,
 )
+from efficientvideoclassification_youtube8m_torch.utils import profiling
 from efficientvideoclassification_youtube8m_torch.utils import summary as summary_lib
 from efficientvideoclassification_youtube8m_torch.data import (
     AggregatedDataLoader,
@@ -102,23 +103,28 @@ def run_eval_epoch(cfg, args, loader, device, launch, global_step_val, writer,
 
     def accumulate(rows, lrep):
         nonlocal examples_processed
-        info = evl_metrics.accumulate_topk(
-            rows["topk_val"], rows["topk_idx"], rows["labels"],
-            rows["per_example_loss"], perr_precision=rows["perr_precision"])
-        examples_processed += rows["topk_val"].shape[0]
-        info["examples_per_second"] = examples_processed / (time.time() - start)
-        line = summary_lib.add_global_step_summary(
-            writer, global_step_val, info, summary_scope="Eval")
-        if with_lrep:
-            log.info("%s | L_REP: %.4f", line, float(lrep))
-        else:
-            log.info(line)
+        with profiling.annotate("metrics.accumulate_topk"):
+            info = evl_metrics.accumulate_topk(
+                rows["topk_val"], rows["topk_idx"], rows["labels"],
+                rows["per_example_loss"], perr_precision=rows["perr_precision"])
+        with profiling.annotate("eval.summary"):
+            examples_processed += rows["topk_val"].shape[0]
+            info["examples_per_second"] = examples_processed / (time.time() - start)
+            line = summary_lib.add_global_step_summary(
+                writer, global_step_val, info, summary_scope="Eval")
+            if with_lrep:
+                log.info("%s | L_REP: %.4f", line, float(lrep))
+            else:
+                log.info(line)
+        profiling.count("eval.batches")
 
-    def drain(fetch, labels, pad):
+    def drain(fetch, labels, pad, index):
         out = fetch.get()
-        accumulate(distributed.gather_step_outputs(out, labels, pad,
-                                                   args.model_parallelism),
-                   out.get("student_loss_state"))
+        with profiling.annotate("eval.accumulate", index):
+            with profiling.annotate("eval.unpack", index):
+                rows = distributed.gather_step_outputs(out, labels, pad,
+                                                       args.model_parallelism)
+            accumulate(rows, out.get("student_loss_state"))
 
     stream = distributed.sync_host_streams(loader, "eval", mesh)
     depth = max(1, cfg.fetch_depth)
@@ -129,18 +135,21 @@ def run_eval_epoch(cfg, args, loader, device, launch, global_step_val, writer,
             out = out if isinstance(out, dict) else {"host_pack": out}
             return HostFetch(out, keys), [(b.labels, b.pad) for b in bufs]
 
-        for fetch, metas in distributed.stacked_ring(stream, steps, depth,
-                                                     launch_stack):
+        for index, (fetch, metas) in enumerate(distributed.stacked_ring(
+                stream, steps, depth, launch_stack)):
             out = fetch.get()
             lrep = out.get("student_loss_state")
-            for i, rows in enumerate(distributed.gather_stacked_outputs(
-                    out["host_pack"], metas, args.model_parallelism)):
-                accumulate(rows, None if lrep is None else lrep[i])
+            with profiling.annotate("eval.accumulate", index):
+                with profiling.annotate("eval.unpack", index):
+                    stack = list(distributed.gather_stacked_outputs(
+                        out["host_pack"], metas, args.model_parallelism))
+                for i, rows in enumerate(stack):
+                    accumulate(rows, None if lrep is None else lrep[i])
     else:
         ring: deque = deque()
-        for (f, l, n), (labels, pad) in device_prefetch(
-                stream, device, host_keep=lambda b: (b.labels, b.pad)):
-            ring.append((HostFetch(launch(f, l, n), keys), labels, pad))
+        for index, ((f, l, n), (labels, pad)) in enumerate(device_prefetch(
+                stream, device, host_keep=lambda b: (b.labels, b.pad))):
+            ring.append((HostFetch(launch(f, l, n), keys), labels, pad, index))
             if len(ring) > depth:
                 drain(*ring.popleft())
         while ring:

@@ -34,6 +34,7 @@ import numpy as np
 
 from efficientvideoclassification_youtube8m_torch.data import yt8m
 from efficientvideoclassification_youtube8m_torch.data.tfrecord import TFRecordReader
+from efficientvideoclassification_youtube8m_torch.utils import profiling
 
 _STOP = object()
 _FILE_END = object()
@@ -190,6 +191,18 @@ class FrameDataLoader:
                     )
                 yield video
 
+    def _parsed(self, path: str) -> Iterator[yt8m.FrameVideo]:
+        """`_iter_file(path)`, each advance of the parser by one video a
+        `loader.parse` span (the reader's put falls outside it)."""
+        videos = self._iter_file(path)
+        while True:
+            with profiling.annotate("loader.parse"):
+                video = next(videos, _FILE_END)
+            if video is _FILE_END:
+                return
+            profiling.count("loader.videos")
+            yield video
+
     def _file_stream(self, rng: random.Random) -> Iterator[str]:
         """Epoch-concatenated (optionally per-epoch shuffled) file paths;
         infinite when num_epochs is None (string_input_producer
@@ -226,7 +239,7 @@ class FrameDataLoader:
                 self._stoppable_put(video_q, _STOP, stop)
                 return
             try:
-                for video in self._iter_file(path):
+                for video in self._parsed(path):
                     if not self._stoppable_put(video_q, video, stop):
                         return
             except Exception as e:  # surface loader errors to the consumer
@@ -307,7 +320,7 @@ class FrameDataLoader:
                     self._stoppable_put(video_qs[r], _STREAM_END, stop)
                     return
                 try:
-                    for v in self._iter_file(path):
+                    for v in self._parsed(path):
                         if not self._stoppable_put(video_qs[r], v, stop):
                             return
                     if not self._stoppable_put(video_qs[r], _FILE_END, stop):
@@ -353,24 +366,27 @@ class FrameDataLoader:
         buffer: List[yt8m.FrameVideo] = []
         exhausted = False
         while True:
-            while not exhausted and len(buffer) < (
-                self.shuffle_buffer if self.shuffle else self.batch_size
-            ):
-                try:
-                    v = next(videos)
-                    if self.shuffle and v.features.base is not None:
-                        # own the bytes before they sit in the shuffle
-                        # buffer: the native parser yields VIEWS into
-                        # whole 32-video parse blocks, and random
-                        # eviction leaves straggler videos pinning
-                        # entire blocks (multi-GB host RSS at flagship
-                        # batch/buffer sizes). FIFO (no-shuffle) drains
-                        # blocks promptly and keeps zero-copy.
-                        v = dataclasses.replace(v,
-                                                features=v.features.copy())
-                    buffer.append(v)
-                except StopIteration:
-                    exhausted = True
+            # one span a fill, not a get: a span a video cost about as much
+            # as the gets it timed
+            with profiling.annotate("loader.queue_wait"):
+                while not exhausted and len(buffer) < (
+                    self.shuffle_buffer if self.shuffle else self.batch_size
+                ):
+                    try:
+                        v = next(videos)
+                        if self.shuffle and v.features.base is not None:
+                            # own the bytes before they sit in the shuffle
+                            # buffer: the native parser yields VIEWS into
+                            # whole 32-video parse blocks, and random
+                            # eviction leaves straggler videos pinning
+                            # entire blocks (multi-GB host RSS at flagship
+                            # batch/buffer sizes). FIFO (no-shuffle) drains
+                            # blocks promptly and keeps zero-copy.
+                            v = dataclasses.replace(v,
+                                                    features=v.features.copy())
+                        buffer.append(v)
+                    except StopIteration:
+                        exhausted = True
             if not buffer:
                 return
             take = min(self.batch_size, len(buffer))
@@ -384,13 +400,13 @@ class FrameDataLoader:
                 ]
             else:
                 picked, buffer = buffer[:take], buffer[take:]
-            if take < self.batch_size and not self.pad_final_batch and exhausted:
-                yield self._assemble(picked, pad=0)
-                return
-            yield self._assemble(
-                picked,
-                pad=(self.batch_size - take) if self.pad_final_batch else 0,
-            )
+            with profiling.annotate("loader.assemble"):
+                batch = self._assemble(
+                    picked,
+                    pad=(self.batch_size - take) if self.pad_final_batch else 0,
+                )
+            yield batch
+            # a short batch takes the whole buffer, so it is always the last
             if exhausted and not buffer:
                 return
 

@@ -41,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from efficientvideoclassification_youtube8m_torch.parallel.mesh import default_device
+from efficientvideoclassification_youtube8m_torch.utils import profiling
 
 # how long a rank waits for its peers at start-up and in a collective
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=600)
@@ -447,18 +448,19 @@ def stack_batches(mesh, bufs, steps: int, dummy_labels=None):
         shard_stacked_batch,
     )
 
-    feats = [b.features for b in bufs]
-    nfs = [b.num_frames for b in bufs]
-    for _ in range(steps - len(bufs)):
-        feats.append(np.zeros_like(feats[0]))
-        nfs.append(np.zeros_like(nfs[0]))
-    if dummy_labels is None:
-        labs = [b.labels for b in bufs]
-        labs += [np.zeros_like(labs[0])] * (steps - len(bufs))
-        labs = np.stack(labs)
-    else:
-        labs = np.broadcast_to(dummy_labels, (steps,) + dummy_labels.shape)
-    return shard_stacked_batch(mesh, np.stack(feats), labs, np.stack(nfs))
+    with profiling.annotate("prefetch.h2d"):
+        feats = [b.features for b in bufs]
+        nfs = [b.num_frames for b in bufs]
+        for _ in range(steps - len(bufs)):
+            feats.append(np.zeros_like(feats[0]))
+            nfs.append(np.zeros_like(nfs[0]))
+        if dummy_labels is None:
+            labs = [b.labels for b in bufs]
+            labs += [np.zeros_like(labs[0])] * (steps - len(bufs))
+            labs = np.stack(labs)
+        else:
+            labs = np.broadcast_to(dummy_labels, (steps,) + dummy_labels.shape)
+        return shard_stacked_batch(mesh, np.stack(feats), labs, np.stack(nfs))
 
 
 def stacked_ring(batches, steps: int, depth: int, launch):

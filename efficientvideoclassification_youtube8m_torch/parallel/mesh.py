@@ -33,6 +33,7 @@ from efficientvideoclassification_youtube8m_torch.ops.collectives import (
     ModelShards,
     gather_leaf,
 )
+from efficientvideoclassification_youtube8m_torch.utils import profiling
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -130,7 +131,9 @@ def shard_stacked_batch(mesh: Mesh, features, labels, num_frames):
     def put(x):
         t = torch.from_numpy(np.ascontiguousarray(x))
         if mesh.device.type == "cuda":
-            return t.pin_memory().to(mesh.device, non_blocking=True)
+            with profiling.annotate("prefetch.pin"):
+                t = t.pin_memory()
+            return t.to(mesh.device, non_blocking=True)
         return t.to(mesh.device)
 
     return put(features), put(labels), put(num_frames)

@@ -65,6 +65,7 @@ from efficientvideoclassification_youtube8m_torch.train.state import (
     StudentState,
     params_of,
 )
+from efficientvideoclassification_youtube8m_torch.utils import profiling
 from efficientvideoclassification_youtube8m_torch.utils.config import TrainConfig
 
 if TYPE_CHECKING:  # the parallel layer imports this module
@@ -663,18 +664,19 @@ def build_validate_step(cfg: TrainConfig, top_k: int = 20,
 
     @torch.no_grad()
     def step(teacher, student, features_u8, labels, num_frames):
-        model_input = preprocess_batch(cfg, features_u8, num_frames)
-        model_input_s = uniform_subsample(model_input, cfg.every_n)
-        nf_student = student_num_frames(num_frames, cfg.every_n,
-                                        cfg.max_num_frames)
-        rng_t, rng_s = _faithful_eval_rngs(cfg, num_frames, mesh)
-        with _eval_draws(mesh):
-            out_t = forward_teacher(cfg, teacher, model_input, num_frames,
-                                    labels, inference=True, rng=rng_t)
-            out_s = forward_student(cfg, student, model_input_s, nf_student,
-                                    labels, inference=True, rng=rng_s)
-        ls = _distill_losses(cfg, out_t, out_s, labels, label_loss_fn)
-        return {**ls, **_eval_outputs(out_s["predictions"], labels, top_k)}
+        with profiling.annotate("step.eval"):
+            model_input = preprocess_batch(cfg, features_u8, num_frames)
+            model_input_s = uniform_subsample(model_input, cfg.every_n)
+            nf_student = student_num_frames(num_frames, cfg.every_n,
+                                            cfg.max_num_frames)
+            rng_t, rng_s = _faithful_eval_rngs(cfg, num_frames, mesh)
+            with _eval_draws(mesh):
+                out_t = forward_teacher(cfg, teacher, model_input, num_frames,
+                                        labels, inference=True, rng=rng_t)
+                out_s = forward_student(cfg, student, model_input_s, nf_student,
+                                        labels, inference=True, rng=rng_s)
+            ls = _distill_losses(cfg, out_t, out_s, labels, label_loss_fn)
+            return {**ls, **_eval_outputs(out_s["predictions"], labels, top_k)}
 
     return step
 
@@ -695,23 +697,24 @@ def build_eval_step(cfg: TrainConfig, top_k: int = 20,
 
     @torch.no_grad()
     def step(student, features_u8, labels, num_frames):
-        if aggregated:
-            out_s = forward_video_level(cfg, student,
-                                        preprocess_aggregated(features_u8),
-                                        labels, inference=True)
+        with profiling.annotate("step.eval"):
+            if aggregated:
+                out_s = forward_video_level(cfg, student,
+                                            preprocess_aggregated(features_u8),
+                                            labels, inference=True)
+                return _eval_outputs(out_s["predictions"], labels, top_k)
+            # subsample uint8 first: only the kept frames are preprocessed
+            nf_student = student_num_frames(num_frames, cfg.every_n,
+                                            cfg.max_num_frames)
+            sub = (features_u8 if host_subsampled
+                   else uniform_subsample(features_u8, cfg.every_n))
+            model_input_s = preprocess_batch(cfg, sub, nf_student)
+            _, rng_s = _faithful_eval_rngs(cfg, num_frames, mesh)
+            with _eval_draws(mesh):
+                out_s = forward_student(cfg, student, model_input_s, nf_student,
+                                        labels, inference=True, rng=rng_s,
+                                        kernel_override=kernel_override)
             return _eval_outputs(out_s["predictions"], labels, top_k)
-        # subsample uint8 first: only the kept frames are preprocessed
-        nf_student = student_num_frames(num_frames, cfg.every_n,
-                                        cfg.max_num_frames)
-        sub = (features_u8 if host_subsampled
-               else uniform_subsample(features_u8, cfg.every_n))
-        model_input_s = preprocess_batch(cfg, sub, nf_student)
-        _, rng_s = _faithful_eval_rngs(cfg, num_frames, mesh)
-        with _eval_draws(mesh):
-            out_s = forward_student(cfg, student, model_input_s, nf_student,
-                                    labels, inference=True, rng=rng_s,
-                                    kernel_override=kernel_override)
-        return _eval_outputs(out_s["predictions"], labels, top_k)
 
     return step
 
@@ -730,16 +733,17 @@ def build_quantized_eval_step(cfg: TrainConfig, top_k: int = 20,
             "+ MoeModel configuration")
 
     def step(qparams, features_u8, labels, num_frames):
-        nf_student = student_num_frames(num_frames, cfg.every_n,
-                                        cfg.max_num_frames)
-        sub = (features_u8 if host_subsampled
-               else uniform_subsample(features_u8, cfg.every_n))
-        model_input_s = preprocess_batch(cfg, sub, nf_student)
-        predictions = quantized_hierarchical_forward(
-            qparams, model_input_s, nf_student, cfg.num_inputs_L1,
-            cfg.num_classes, cfg.moe_num_mixtures,
-            use_kernel=(cfg.use_pallas_inference
-                        and features_u8.device.type == "cuda"))
-        return _eval_outputs(predictions, labels, top_k)
+        with profiling.annotate("step.eval"):
+            nf_student = student_num_frames(num_frames, cfg.every_n,
+                                            cfg.max_num_frames)
+            sub = (features_u8 if host_subsampled
+                   else uniform_subsample(features_u8, cfg.every_n))
+            model_input_s = preprocess_batch(cfg, sub, nf_student)
+            predictions = quantized_hierarchical_forward(
+                qparams, model_input_s, nf_student, cfg.num_inputs_L1,
+                cfg.num_classes, cfg.moe_num_mixtures,
+                use_kernel=(cfg.use_pallas_inference
+                            and features_u8.device.type == "cuda"))
+            return _eval_outputs(predictions, labels, top_k)
 
     return step

@@ -22,10 +22,23 @@ from __future__ import annotations
 import time
 from collections import deque
 
+import numpy as np
 import torch
 
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
 from efficientvideoclassification_youtube8m_torch.utils import profiling
+
+
+def _stage(a: np.ndarray) -> torch.Tensor:
+    """A copy of `a` in pinned memory, made with one `np.copyto`:
+    single-threaded and outside the interpreter lock, where a
+    `Tensor.copy_` or `pin_memory()` runs on the intra-op thread team,
+    which the loader's reader threads keep busy. The buffer comes from
+    PyTorch's caching host allocator, which hands a block out again only
+    once the `non_blocking` copies that read it have run."""
+    buf = torch.empty(a.shape, dtype=torch.from_numpy(a).dtype, pin_memory=True)
+    np.copyto(buf.numpy(), a)
+    return buf
 
 
 def device_prefetch(loader, device: torch.device, depth: int = 1,
@@ -33,11 +46,13 @@ def device_prefetch(loader, device: torch.device, depth: int = 1,
     """Yield `((features, labels, num_frames) on `device`, host_keep(batch))`
     with the host->device copy running `depth` batches ahead.
 
-    On a CUDA device each batch goes through pinned memory with
-    `non_blocking` copies on a side stream, so batch k+1's transfer
-    overlaps step k; the consumer's stream waits on the copy's event
-    before it uses the tensors. Only `host_keep(batch)` stays on the host
-    (default: the labels, for the train loops' metric logging)."""
+    On a CUDA device each array is staged in pinned memory (`_stage`) and
+    copied with a `non_blocking` copy on a side stream, so batch k+1's
+    transfer overlaps step k; the consumer's stream waits on the copy's
+    event before it uses the tensors. Only `host_keep(batch)` stays on
+    the host (default: the labels, for the train loops' metric logging):
+    the loader's own arrays, never a staging buffer, which a later batch
+    reuses."""
     if host_keep is None:
         host_keep = lambda b: b.labels  # noqa: E731
     cuda = device.type == "cuda"
@@ -46,14 +61,13 @@ def device_prefetch(loader, device: torch.device, depth: int = 1,
 
     def send(batch, index):
         with profiling.annotate("prefetch.h2d", index):
-            host = [torch.from_numpy(a) for a in
-                    (batch.features, batch.labels, batch.num_frames)]
+            arrays = (batch.features, batch.labels, batch.num_frames)
             if not cuda:
-                return host, None
+                return [torch.from_numpy(a) for a in arrays], None
             with torch.cuda.stream(stream):
                 with profiling.annotate("prefetch.pin", index):
-                    pinned = [t.pin_memory() for t in host]
-                dev = [t.to(device, non_blocking=True) for t in pinned]
+                    staged = [_stage(a) for a in arrays]
+                dev = [t.to(device, non_blocking=True) for t in staged]
                 return dev, stream.record_event()
 
     def receive(item):

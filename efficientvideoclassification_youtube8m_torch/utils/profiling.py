@@ -37,8 +37,8 @@ prefetch and the fetch):
   loader.assemble     the consumer assembling a batch (`_assemble`)
   loader.parse        a reader thread advancing its parser by one video
   loader.videos       (counter) videos parsed
-  prefetch.h2d        a batch's host->device copy enqueued, its pinning
-                      (`prefetch.pin`) included
+  prefetch.h2d        a batch's host->device copy enqueued, its staging
+                      in pinned memory (`prefetch.pin`) included
   step.eval           the eval, validate and int8 eval steps' host
                       dispatch (not their device time)
   fetch.enqueue       `HostFetch` queueing a step's device->host copy

@@ -26,3 +26,10 @@ os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    # the tests that need an NVIDIA card decide inside the test and skip
+    # without one; the files they live in import no JAX, so on the card
+    # they run with `--noconftest`
+    config.addinivalue_line("markers", "card: needs an NVIDIA card (skips without one)")

@@ -1,9 +1,10 @@
 """Frame-level models (port of the JAX package's models/frame_level.py):
 the flagship `HierarchicalLstmModel`, `FrameLevelLogisticModel`,
 `DbofModel` (with batch norm), `NetVLADModel` and `NeXtVLADModel`, and
-the frame samplers and pooling they use. Each takes [B, T, D] frames and
-`num_frames` [B], and swallows the keywords it does not read (the LSTM
-kernel switches among them).
+the frame samplers and pooling they use; and `NeXtVLADGatedModel`, the
+published NeXtVLAD, which the port has and the JAX package does not.
+Each takes [B, T, D] frames and `num_frames` [B], and swallows the
+keywords it does not read (the LSTM kernel switches among them).
 
 The flagship: the reference runs one `dynamic_rnn` per chunk of frames sharing one
 2-layer LSTM, stacks the chunk final states, and runs a second 2-layer
@@ -16,16 +17,19 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from efficientvideoclassification_youtube8m_torch.models.base import (
     Params,
+    dense,
     dense_init,
+    dropout,
     gather_classes,
     get_model,
+    glorot_uniform,
     head_input,
     l2_loss,
     linear,
@@ -43,6 +47,7 @@ from efficientvideoclassification_youtube8m_torch.ops.lstm import (
     init_multi_lstm,
     multi_lstm_scan,
 )
+from efficientvideoclassification_youtube8m_torch.utils import profiling
 
 
 def _check_classifier(model: nn.Module, classifier: Optional[str]) -> None:
@@ -460,3 +465,150 @@ class NeXtVLADModel(nn.Module):
         vlad = weighted - a_sum[:, :, None] * self.centers[None]
         return _vlad_tail(self, vlad, classifier_kwargs,
                           (self.expand.w, self.assign.w, self.hidden.w), l2_penalty)
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor, compute_dtype: torch.dtype
+            ) -> torch.Tensor:
+    """``x @ w`` (batched as `torch.matmul` batches) with a float32 result:
+    float32 operands as `dense` multiplies them; otherwise both operands
+    in `compute_dtype`, multiplied there (float32 accumulation, the
+    product rounded to `compute_dtype`) and widened."""
+    if compute_dtype == torch.float32:
+        return dense(w, x)
+    return torch.matmul(x.to(compute_dtype), w.to(compute_dtype)).to(torch.float32)
+
+
+class _NeXtVLADBranch(nn.Module):
+    """One feature's NeXtVLAD block (Lin, Xiao & Fan 2018, the authors'
+    `NeXtVLAD.forward`): expand D to expansion*D, a sigmoid attention per
+    (frame, group) masked to the true frames, batch-normed cluster logits
+    [T, G*K] (no bias) softmaxed over K within each group, the
+    assignment-weighted sum of each group's slice of the expanded frame
+    less the cluster centers [F, K] times the summed weights, l2 over F
+    for each cluster, flattened as [F, K] and batch-normed."""
+
+    def __init__(self, feature_size: int, clusters: int, groups: int,
+                 expansion: int, key: prng.Key, device=None):
+        super().__init__()
+        wide = expansion * feature_size
+        if wide % groups:
+            raise ValueError(f"expansion {expansion} x feature {feature_size} "
+                             f"does not split into {groups} groups")
+        k1, k2, k3, k4 = prng.split(key, 4)
+        self.groups, self.clusters = groups, clusters
+        self.code_size = wide // groups * clusters
+        self.expand = dense_init(feature_size, wide, k1, device)
+        self.attention = dense_init(wide, groups, k2, device)
+        self.cluster = dense_init(wide, groups * clusters, k3, device, use_bias=False)
+        self.cluster_bn = _bn_init(groups * clusters, device)
+        self.centers = nn.Parameter(glorot_uniform((wide // groups, clusters), k4, device))
+        self.vlad_bn = _bn_init(self.code_size, device)
+
+    def forward(self, x, mask, norm: Callable, name: str,
+                compute_dtype: torch.dtype) -> torch.Tensor:
+        """x [B, T, D], mask [B, T, 1] -> the code [B, F*K]; `norm(path,
+        value)` applies the batch norm at `path` (`name.cluster_bn`, ...)."""
+        B, T, _ = x.shape
+        G, K = self.groups, self.clusters
+        wide = (_matmul(x, self.expand.w, compute_dtype) + self.expand.b).to(compute_dtype)
+        attn = torch.sigmoid(_matmul(wide, self.attention.w, compute_dtype)
+                             + self.attention.b) * mask  # [B, T, G]
+        logits = norm(f"{name}.cluster_bn",
+                      _matmul(wide, self.cluster.w, compute_dtype).reshape(B * T, G * K))
+        assign = (torch.softmax(logits.reshape(B, T * G, K), dim=-1)
+                  * attn.reshape(B, T * G, 1))
+        # v[f, k] = sum_{t,g} a[t,g,k] wide[t,g,f] - c[f, k] sum_{t,g} a[t,g,k]
+        vlad = _matmul(assign.transpose(1, 2), wide.reshape(B, T * G, -1),
+                       compute_dtype).transpose(1, 2)  # [B, F, K]
+        vlad = vlad - torch.sum(assign, dim=1)[:, None, :] * self.centers
+        return norm(f"{name}.vlad_bn", _l2_rows(vlad, 1).reshape(B, -1))
+
+
+@register_model("NeXtVLADGatedModel")
+class NeXtVLADGatedModel(nn.Module):
+    """The published NeXtVLAD (Lin, Xiao & Fan, ECCV 2018 Workshops,
+    arXiv:1811.05014; the authors' `NeXtVLADModel`): one `_NeXtVLADBranch`
+    for each of the two features (the first with `vlad_clusters` clusters
+    and `groups` groups, the second with half of each), their codes
+    concatenated, dropout of `drop_rate` in training, a hidden FC (no
+    bias) with batch norm, SE context gating (an FC down by
+    `gating_reduction` with batch norm and relu, an FC back up, a
+    sigmoid, the product), then the video-level classifier. The defaults
+    are the authors' published widths. The trunk adds no regularization
+    loss (the authors' variables have no regularizer).
+
+    Every product, the aggregation included, multiplies its operands in
+    `compute_dtype`; sigmoids, softmaxes, batch norms and l2 norms run in
+    float32. In training the batch norms use the batch's moments (the
+    cluster logits' over every frame row, padding included, as the
+    authors' code does) and the forward returns the new moving
+    statistics under "updated_stats"; at inference they use the moving
+    statistics."""
+
+    def __init__(self, input_size: int, vocab_size: int,
+                 feature_sizes: Optional[Sequence[int]] = None,
+                 vlad_clusters: int = 128, groups: int = 8, expansion: int = 2,
+                 hidden_size: int = 2048, gating_reduction: int = 8,
+                 drop_rate: float = 0.5, classifier: str = "MoeModel",
+                 classifier_kwargs: Optional[dict] = None,
+                 key: Optional[prng.Key] = None, device=None, **_):
+        super().__init__()
+        sizes = list(feature_sizes or ())
+        if len(sizes) != 2 or sum(sizes) != input_size:
+            raise ValueError(f"NeXtVLADGatedModel needs two features (video, audio) "
+                             f"summing to {input_size}, got {feature_sizes}")
+        kv, ka, kh, kg1, kg2, kc = prng.split(key or prng.prng_key(0), 6)
+        self.feature_sizes = tuple(sizes)
+        self.drop_rate = drop_rate
+        self.video = _NeXtVLADBranch(sizes[0], vlad_clusters, groups, expansion, kv, device)
+        self.audio = _NeXtVLADBranch(sizes[1], vlad_clusters // 2, groups // 2, expansion,
+                                     ka, device)
+        squeezed = hidden_size // gating_reduction
+        self.hidden = dense_init(self.video.code_size + self.audio.code_size, hidden_size,
+                                 kh, device, use_bias=False)
+        self.hidden_bn = _bn_init(hidden_size, device)
+        self.gate1 = dense_init(hidden_size, squeezed, kg1, device, use_bias=False)
+        self.gate_bn = _bn_init(squeezed, device)
+        self.gate2 = dense_init(squeezed, hidden_size, kg2, device, use_bias=False)
+        self.classifier = get_model(classifier)(
+            hidden_size, vocab_size, key=kc, device=device,
+            **(classifier_kwargs or {}))
+
+    def forward(self, model_input, num_frames, classifier: Optional[str] = None,
+                compute_dtype: torch.dtype = torch.float32, is_training: bool = True,
+                rng: Optional[prng.Key] = None, **classifier_kwargs) -> Dict[str, Any]:
+        """`rng` (training) draws the dropout mask; the head gets a key of
+        its own."""
+        _check_classifier(self, classifier)
+        mask = _frame_mask(num_frames, model_input.shape[1], model_input.device)
+        updated: Dict[str, torch.Tensor] = {}
+
+        def norm(path, value):
+            value, new = _bn_apply(self.get_submodule(path), value, is_training)
+            updated.update({f"{path}.{k}": v for k, v in new.items()})
+            return value
+
+        split = self.feature_sizes[0]
+        with profiling.annotate("nextvlad.video"):
+            video = self.video(model_input[:, :, :split], mask, norm, "video", compute_dtype)
+        with profiling.annotate("nextvlad.audio"):
+            audio = self.audio(model_input[:, :, split:], mask, norm, "audio", compute_dtype)
+        vlad = torch.cat([video, audio], dim=1)
+        cls_rng = None
+        if rng is not None:
+            drop_rng, cls_rng = prng.split(rng)
+            if is_training and self.drop_rate > 0:
+                vlad = dropout(vlad, 1.0 - self.drop_rate, drop_rng)
+        with profiling.annotate("nextvlad.gate"):
+            act = self._gate(norm("hidden_bn", _matmul(vlad, self.hidden.w, compute_dtype)),
+                             norm, compute_dtype)
+        result = self.classifier(act, rng=cls_rng, compute_dtype=compute_dtype,
+                                 is_training=is_training, **classifier_kwargs)
+        if updated:
+            result["updated_stats"] = updated
+        return result
+
+    def _gate(self, act, norm: Callable, compute_dtype: torch.dtype) -> torch.Tensor:
+        """SE context gating: act sigmoid(relu(BN(act W_g1)) W_g2)."""
+        gates = torch.relu(norm("gate_bn", _matmul(act, self.gate1.w, compute_dtype)))
+        return act * torch.sigmoid(_matmul(gates, self.gate2.w, compute_dtype))

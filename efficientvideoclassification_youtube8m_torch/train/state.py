@@ -32,7 +32,8 @@ def init_model(cfg: TrainConfig, key: Optional[prng.Key] = None,
     JAX `init_distill_state` sizes it: the head by `num_mixtures` (MoE)
     or `num_hidden_units`; the same two flattened for a video-level
     `--model` (the aggregated branch); DBoF by its cluster, hidden and
-    batch-norm flags. Every model swallows the sizes it does not read."""
+    batch-norm flags; `NeXtVLADGatedModel` by the feature split. Every
+    model swallows the sizes it does not read."""
     classifier_kwargs = (
         {"num_mixtures": cfg.moe_num_mixtures}
         if cfg.video_level_classifier_model == "MoeModel"
@@ -43,6 +44,7 @@ def init_model(cfg: TrainConfig, key: Optional[prng.Key] = None,
         classifier_kwargs=classifier_kwargs,
         num_mixtures=cfg.moe_num_mixtures,
         num_hidden_units=cfg.num_hidden_units,
+        feature_sizes=cfg.feature_sizes_list,
     )
     if cfg.model == "DbofModel":
         kwargs.update(cluster_size=cfg.dbof_cluster_size,

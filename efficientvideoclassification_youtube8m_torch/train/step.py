@@ -199,7 +199,7 @@ def forward_student(cfg: TrainConfig, model, model_input_student: torch.Tensor,
 # the models whose forward takes [B, T, D] frames (models/frame_level.py)
 FRAME_LEVEL_MODELS = frozenset({
     "HierarchicalLstmModel", "FrameLevelLogisticModel", "DbofModel",
-    "NetVLADModel", "NeXtVLADModel",
+    "NetVLADModel", "NeXtVLADModel", "NeXtVLADGatedModel",
 })
 
 

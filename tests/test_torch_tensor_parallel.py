@@ -29,11 +29,11 @@ import _torch_parallel_worker as pworker
 import _torch_tp_worker as worker
 from efficientvideoclassification_youtube8m_tpu import parallel as jparallel
 from efficientvideoclassification_youtube8m_tpu import train as jtrain
+from efficientvideoclassification_youtube8m_tpu.models import MODEL_REGISTRY as JAX_MODELS
 from efficientvideoclassification_youtube8m_tpu.train import checkpoint as jckpt
 from efficientvideoclassification_youtube8m_torch.cli import eval as eval_cli
 from efficientvideoclassification_youtube8m_torch.cli import train as train_cli
 from efficientvideoclassification_youtube8m_torch.data import write_synthetic_frame_shard
-from efficientvideoclassification_youtube8m_torch.models import MODEL_REGISTRY
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
 from efficientvideoclassification_youtube8m_torch.parallel import mesh as tmesh
 from efficientvideoclassification_youtube8m_torch.parallel import sharded_step
@@ -134,12 +134,14 @@ def _jax_mesh(mode):
                                  devices=jax.devices()[:data * model])
 
 
-@pytest.mark.parametrize("name", sorted(MODEL_REGISTRY))
+@pytest.mark.parametrize("name", sorted(JAX_MODELS))
 @pytest.mark.parametrize("model_size,min_dim", [(2, 32), (3, 16)])
 def test_rule_matches_jax_shard_state_specs(name, model_size, min_dim):
     """The port's column rule over its state tree equals the JAX
     `shard_state_specs` over the JAX state, leaf for leaf, and
-    `shard_state` shards exactly the parameters the rule names."""
+    `shard_state` shards exactly the parameters the rule names, for every
+    model of the JAX registry (a model only the port has gets its own
+    case below)."""
     # the split heads' bands are those of the 4716-class vocab
     cfg = worker.DBOF.replace(model=name,
                               num_classes=4716 if name.startswith("Split") else 32)
@@ -158,6 +160,33 @@ def test_rule_matches_jax_shard_state_specs(name, model_size, min_dim):
     names = {k[len("params_student/"):].replace("/", ".") for k, v in got.items()
              if k.startswith("params_student/") and v}
     assert sharded.names == names
+
+
+@pytest.mark.parametrize("model_size,min_dim", [(2, 32), (3, 16)])
+def test_rule_over_the_gated_nextvlad(model_size, min_dim):
+    """NeXtVLADGatedModel, which the JAX package lacks, at its published
+    cluster and hidden widths over 12 + 4 features: the rule shards each
+    leaf (parameter and optimizer slot) whose last dim is at least
+    `min_dim` and divides by the model size, the 1-D batch-norm leaves of
+    the codes among them, and `shard_module` shards exactly those."""
+    cfg = worker.DBOF.replace(model="NeXtVLADGatedModel", feature_sizes="12, 4",
+                              video_level_classifier_model="LogisticModel")
+    state = init_distill_state(cfg, make_optimizer(cfg.optimizer, cfg.clip_gradient_norm))
+    got = _flat_specs(tmesh.shard_state_specs(state, model_size, min_dim))
+    leaves = _flat_specs(state_tree(state))
+    want = {k: ((None,) * (v.ndim - 1) + ("model",)
+                if np.ndim(v) and v.shape[-1] >= min_dim and v.shape[-1] % model_size == 0
+                else ()) for k, v in leaves.items()}
+    assert got == want
+    sharded = {k for k, v in got.items() if v and k.startswith("params_student/")}
+    if min_dim == 32 and model_size == 2:
+        # the video code is 3 x 128 wide, the audio code 2 x 64, the hidden 2048
+        assert {"params_student/video/vlad_bn/scale", "params_student/audio/vlad_bn/scale",
+                "params_student/hidden/w", "params_student/classifier/fc/w"} <= sharded
+    mesh = tmesh.Mesh(group=None, rank=1, world_size=model_size, device=torch.device("cpu"),
+                      data=1, model=model_size, model_group=None)
+    shards = tmesh.shard_module(state.student, mesh, min_dim)
+    assert shards.names == {k[len("params_student/"):].replace("/", ".") for k in sharded}
 
 
 def _flat_specs(tree, prefix=""):

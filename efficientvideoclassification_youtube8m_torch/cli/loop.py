@@ -41,13 +41,33 @@ def _stage(a: np.ndarray) -> torch.Tensor:
     return buf
 
 
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """`a` in pinned memory: the pinned block that `a` is the whole of (the
+    loader's batch arrays with a CUDA device, `data/loader._array`), else
+    a staged copy (`_stage`, counted by `prefetch.staged`). Only
+    `Tensor.numpy()` gives an array a tensor for its base, with the
+    tensor's shape, dtype and bytes (a view or slice of that array has the
+    array for its base); the tensor is a whole block if it starts the
+    block and is contiguous. It is on the caching host allocator's own
+    storage, so a `non_blocking` copy from it records its stream on the
+    block by the storage's context, and the allocator hands the block out
+    again only once the copy has read it."""
+    t = a.base
+    if (isinstance(t, torch.Tensor) and t.storage_offset() == 0
+            and t.is_contiguous() and t.is_pinned()):
+        return t
+    profiling.count("prefetch.staged")
+    return _stage(a)
+
+
 def device_prefetch(loader, device: torch.device, depth: int = 1,
                     host_keep=None):
     """Yield `((features, labels, num_frames) on `device`, host_keep(batch))`
     with the host->device copy running `depth` batches ahead.
 
-    On a CUDA device each array is staged in pinned memory (`_stage`) and
-    copied with a `non_blocking` copy on a side stream, so batch k+1's
+    On a CUDA device each array is copied with a `non_blocking` copy on a
+    side stream from pinned memory (`_host_tensor`: the loader's own
+    pinned block, or a staged copy of any other array), so batch k+1's
     transfer overlaps step k; the consumer's stream waits on the copy's
     event before it uses the tensors. Only `host_keep(batch)` stays on
     the host (default: the labels, for the train loops' metric logging):
@@ -66,8 +86,8 @@ def device_prefetch(loader, device: torch.device, depth: int = 1,
                 return [torch.from_numpy(a) for a in arrays], None
             with torch.cuda.stream(stream):
                 with profiling.annotate("prefetch.pin", index):
-                    staged = [_stage(a) for a in arrays]
-                dev = [t.to(device, non_blocking=True) for t in staged]
+                    host = [_host_tensor(a) for a in arrays]
+                dev = [t.to(device, non_blocking=True) for t in host]
                 return dev, stream.record_event()
 
     def receive(item):

@@ -31,6 +31,7 @@ import threading
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from efficientvideoclassification_youtube8m_torch.data import yt8m
 from efficientvideoclassification_youtube8m_torch.data.tfrecord import TFRecordReader
@@ -55,8 +56,11 @@ def _tune_allocator() -> None:
     steady-state on the full-frame loader (+20-25%, and the worst-case
     runs — where glibc's dynamic threshold never adapts — go from ~4x
     system-time blowups to a 0.13s sys floor), with equal-or-lower peak
-    RSS (one warm arena vs rotating fresh mmaps). Process-global but
-    benign here; set YT8M_NO_MALLOPT=1 to skip. No-op off glibc."""
+    RSS (one warm arena vs rotating fresh mmaps). A full-frame batch of
+    256 (88.5 MB) stays above the threshold: with a CUDA device it is a
+    reused pinned block instead (`FrameDataLoader._array`).
+    Process-global but benign here; set YT8M_NO_MALLOPT=1 to skip. No-op
+    off glibc."""
     global _allocator_tuned
     if _allocator_tuned or os.environ.get("YT8M_NO_MALLOPT"):
         return
@@ -153,6 +157,9 @@ class FrameDataLoader:
         self.pad_final_batch = pad_final_batch
         self.drop_remainder = drop_remainder
         self.deterministic = deterministic
+        # with a CUDA device, batches are assembled in pinned blocks that
+        # the host->device copy reads as they are (`cli/loop.device_prefetch`)
+        self._pinned = torch.cuda.is_available()
 
         self._native = None
         if use_native:
@@ -411,22 +418,34 @@ class FrameDataLoader:
                 return
 
     # ------------------------------------------------------------------
+    def _array(self, shape, dtype, zero: bool) -> np.ndarray:
+        """A batch array, zeroed or not. With a CUDA device it is the numpy
+        view of a block of PyTorch's caching host allocator: pinned, so
+        `device_prefetch` copies it to the device without staging it, and
+        its pages already resident (a fresh array of 88 MB is a new mmap
+        whose every page faults on the first write). A block comes back
+        from the cache with stale bytes, so it is zeroed here or written
+        whole by the caller."""
+        if not self._pinned:
+            return np.zeros(shape, dtype) if zero else np.empty(shape, dtype)
+        a = torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                        pin_memory=True).numpy()
+        if zero:
+            a.fill(0)
+        return a
+
     def _assemble(self, videos: List, pad: int) -> FrameBatch:
         n = len(videos)
         B = n + pad
         all_padded = all(v.padded for v in videos)
-        if all_padded:
-            # native-parser videos arrive pre-padded: one block copy per
-            # video, no batch-wide memset
-            features = np.empty((B, self.feature_rows, self.total_size),
-                                np.uint8)
-            if pad:
-                features[n:] = 0
-        else:
-            features = np.zeros((B, self.feature_rows, self.total_size),
-                                np.uint8)
-        labels = np.zeros((B, self.vocab_size), bool)
-        num_frames = np.zeros((B,), np.int32)
+        # native-parser videos arrive pre-padded: one block copy per
+        # video, no batch-wide memset
+        features = self._array((B, self.feature_rows, self.total_size),
+                               np.uint8, zero=not all_padded)
+        if all_padded and pad:
+            features[n:] = 0
+        labels = self._array((B, self.vocab_size), bool, zero=True)
+        num_frames = self._array((B,), np.int32, zero=True)
         ids = []
         for i, v in enumerate(videos):
             nf = v.num_frames
@@ -476,8 +495,8 @@ class AggregatedDataLoader(FrameDataLoader):
     def _assemble(self, videos: List, pad: int) -> AggregatedBatch:
         n = len(videos)
         B = n + pad
-        features = np.zeros((B, self.total_size), np.float32)
-        labels = np.zeros((B, self.vocab_size), bool)
+        features = self._array((B, self.total_size), np.float32, zero=True)
+        labels = self._array((B, self.vocab_size), bool, zero=True)
         ids = []
         for i, v in enumerate(videos):
             features[i] = v.features

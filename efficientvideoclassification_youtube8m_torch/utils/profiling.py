@@ -39,6 +39,9 @@ prefetch and the fetch):
   loader.videos       (counter) videos parsed
   prefetch.h2d        a batch's host->device copy enqueued, its staging
                       in pinned memory (`prefetch.pin`) included
+  prefetch.staged     (counter) arrays copied into pinned memory
+                      (`cli/loop._stage`); the loader's own pinned
+                      blocks are sent as they are and not counted
   step.eval           the eval, validate and int8 eval steps' host
                       dispatch (not their device time)
   fetch.enqueue       `HostFetch` queueing a step's device->host copy

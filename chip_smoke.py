@@ -3047,7 +3047,7 @@ def phase_mesh(root: str, smi: str) -> dict:
 # ----------------------- phase 16: K-stacked dispatch and orbax checkpoints
 
 # --steps_per_dispatch K against K = 1 on 9b's 21 batches of 256 (a partial
-# last stack: 5 stacks of 4 and one of 1, padded with 3 dummy batches),
+# last group: 5 groups of 4 and one of 1, which runs its one batch),
 # both in one video order (--deterministic_input: racing readers batch
 # the videos otherwise from run to run). Each batch runs in the same
 # kernels at the same shapes either way, so the rank metrics and every AP
@@ -3061,12 +3061,11 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
 
 def stacked_runs(tag, main_fn, logger_name, argv_of, per_batch, batches, pattern):
     """`main_fn(argv_of(k))` at K = 1 and at STACK_K over the same shards,
-    each with its kernel launches (`per_batch` launches of a batch, dummy
-    batches included) and the matches of `pattern` in its own log lines.
-    Returns {k: (result, counts, matches)}."""
-    stacks = math.ceil(batches / STACK_K)
+    each with its kernel launches (`per_batch` launches of a batch, one
+    run a batch at every K) and the matches of `pattern` in its own log
+    lines. Returns {k: (result, counts, matches)}."""
     out = {}
-    for k, count in ((1, batches), (STACK_K, stacks * STACK_K)):
+    for k, count in ((1, batches), (STACK_K, batches)):
         with LogCapture(logger_name, pattern) as capture:
             result, _, counts = run_binary(
                 f"16a {tag} --steps_per_dispatch {k}", main_fn,
@@ -3561,8 +3560,8 @@ def main() -> None:
         # phase 15's paths: a rank's launches, each path counted alone
         kernels[-1]["mesh_launches"] = {path: counts[name] for path, counts
                                         in mesh_launches.items() if counts[name]}
-        # phase 16's paths: K = 4 stacked eval, validate and infer (dummy
-        # batches included), cli.train --checkpoint_format orbax
+        # phase 16's paths: K = 4 eval, validate and infer (one run a
+        # batch), cli.train --checkpoint_format orbax
         paths = {f"{tag} K={STACK_K}": counts.get(name, 0)
                  for tag, counts in stacked_launches.items()}
         paths["train --checkpoint_format orbax"] = orbax_launches[name]

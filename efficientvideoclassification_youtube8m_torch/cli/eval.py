@@ -11,7 +11,9 @@ device the recurrences run in the forward-only kernel
 restored student once and evaluates the int8 forward, whose recurrences
 run in the int8 kernel on a CUDA device. `--frame_features=False`
 evaluates a video-level model on pre-aggregated Examples
-(eval_finetune.py:298-302).
+(eval_finetune.py:298-302). `--steps_per_dispatch K` fetches the outputs
+of K batches at a time (`cli.loop.eval_loop`); the epoch metrics are
+those of K = 1.
 """
 
 from __future__ import annotations
@@ -37,7 +39,6 @@ from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
 )
 from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
     build_sharded_eval_step,
-    build_sharded_eval_step_stacked,
     build_sharded_quantized_eval_step,
 )
 from efficientvideoclassification_youtube8m_torch.train.checkpoint import (
@@ -66,12 +67,7 @@ def evaluate(args):
     state = StudentState(student=init_model(cfg, device=device), opt_student={},
                          global_step=0, dropout_keep_prob=cfg.dropout)
     mesh = create_mesh(model=args.model_parallelism, device=device)
-    if args.steps_per_dispatch > 1:
-        # K batches a launch: the stacked int8 or bf16 step
-        step_fn = build_sharded_eval_step_stacked(
-            cfg, mesh, top_k=args.top_k, host_subsampled=not aggregated,
-            aggregated=aggregated, quantized=args.quantize == "int8")
-    elif args.quantize == "int8":
+    if args.quantize == "int8":
         step_fn = build_sharded_quantized_eval_step(cfg, mesh, top_k=args.top_k,
                                                     host_subsampled=True)
     else:
@@ -112,9 +108,8 @@ def main(argv=None):
                         help="int8: evaluate the quantized serving path "
                         "(ops/quantize.py), the deploy-gate accuracy check")
     parser.add_argument("--steps_per_dispatch", type=int, default=0,
-                        help="K > 1: K batches behind one launch and one "
-                        "packed fetch; epoch metrics are those of K = 1. "
-                        "0 = auto: 1 off the TPU")
+                        help="K batches a fetch; the epoch metrics are those "
+                        "of K = 1. 0 and negative values read as 1")
     args = parser.parse_args(argv)
     flags_lib.dump_flags(args, logger)
     return evaluate(args)

@@ -180,10 +180,10 @@ def param_names(module: nn.Module, prefix: str) -> List[str]:
 def resolve_steps_per_dispatch(args: argparse.Namespace,
                                logger: Optional[logging.Logger] = None) -> int:
     """Resolve --steps_per_dispatch and write the result back onto args:
-    an explicit K >= 1 wins, negative values clamp to 1, and 0 ("auto")
-    is 1, as the JAX rule resolves it off the TPU (its K = 24 is the TPU's
-    alone). K > 1 stacks K batches behind one launch of the eval binaries
-    (`parallel.distributed.stacked_ring`)."""
+    an explicit K >= 1 wins, and 0 and negative values read as 1. The
+    eval binaries fetch the outputs of K batches at a time
+    (`cli.loop.eval_loop`); the epoch metrics are those of K = 1, and
+    `cli.infer` takes its rows from the device top-k at K > 1."""
     k = getattr(args, "steps_per_dispatch", 1)
     if k == 0 and logger is not None:
         logger.info("steps_per_dispatch auto-resolved to 1")

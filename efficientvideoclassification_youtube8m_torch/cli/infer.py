@@ -24,10 +24,11 @@ pre-aggregated Examples into a video-level model
 before running, the named bias parameter b is replaced by
 `b/alpha + mean(b - b/alpha)`.
 
-`--steps_per_dispatch K > 1` runs K batches behind one launch and writes
-the rows from the step's device top-k (the packed host bundle), ties
-ranked lowest class first as `lax.top_k` ranks them, as the JAX binary
-does at the same K; K = 1 ranks the host copy of the predictions.
+`--steps_per_dispatch K` fetches the outputs of K batches at a time
+(`cli.loop.eval_loop`). At K > 1 the rows come from the step's device
+top-k (the packed host bundle), ties ranked lowest class first as
+`lax.top_k` ranks them, as the JAX binary does at the same K; K = 1 ranks
+the host copy of the predictions.
 """
 
 from __future__ import annotations
@@ -35,14 +36,13 @@ from __future__ import annotations
 import logging
 import sys
 import time
-from collections import deque
 
 import numpy as np
 import torch
 from torch import nn
 
 from efficientvideoclassification_youtube8m_torch.cli import flags as flags_lib
-from efficientvideoclassification_youtube8m_torch.cli.loop import HostFetch, device_prefetch
+from efficientvideoclassification_youtube8m_torch.cli.loop import eval_loop
 from efficientvideoclassification_youtube8m_torch.cli.validate import (
     EVAL_FIELDS,
     eval_loader,
@@ -70,7 +70,6 @@ from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
 )
 from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
     build_sharded_eval_step,
-    build_sharded_eval_step_stacked,
     build_sharded_quantized_eval_step,
 )
 
@@ -145,11 +144,6 @@ def inference(args) -> None:
         params = quantize_hierarchical_params(
             params, cfg.total_feature_size, cfg.lstm_cells, cfg.lstm_layers,
             device=device)
-    if steps > 1:
-        step_fn = build_sharded_eval_step_stacked(
-            cfg, mesh, top_k=args.top_k, host_subsampled=not aggregated,
-            aggregated=aggregated, quantized=quantize == "int8")
-    elif quantize == "int8":
         step_fn = build_sharded_quantized_eval_step(cfg, mesh, top_k=args.top_k,
                                                     host_subsampled=True)
     else:
@@ -164,56 +158,31 @@ def inference(args) -> None:
     stream = distributed.scatter_batches(loader, mesh)
     model = args.model_parallelism
 
+    # K > 1: the rows from the device top-k, as the JAX binary's at the same K
+    device_topk = steps > 1
+    key = "host_pack" if device_topk else "predictions"
+
     def rows():
         num_examples_processed = 0
         start_time = time.time()
-        # lag-N ring (like cli.eval): several launches in flight, the
-        # oldest result pulled; the FIFO drain keeps the loader's row order
-        ring: deque = deque()
-        depth = max(1, cfg.fetch_depth)
-
-        def progress(valid):
-            nonlocal num_examples_processed
-            num_examples_processed += valid
+        for out, (vids, pad) in eval_loop(
+                stream, device, steps, max(1, cfg.fetch_depth),
+                lambda f, l, n: step_fn(params, f, l, n), (key,),
+                host_keep=lambda b: (b.video_ids, b.pad)):
+            fetched = out[key].numpy()
+            if device_topk:
+                top = distributed.unpack_host_pack(fetched, None)
+                got, _ = distributed.gather_eval_rows(
+                    {k: top[k] for k in ("topk_idx", "topk_val")}, pad, model)
+                lines = format_ranked_lines(vids, got["topk_idx"], got["topk_val"])
+            else:
+                got, _ = distributed.gather_eval_rows({"predictions": fetched},
+                                                      pad, model)
+                lines = format_lines(vids, got["predictions"], args.top_k)
+            num_examples_processed += len(vids)
             logger.info("num examples processed: %d elapsed seconds: %.2f",
                         num_examples_processed, time.time() - start_time)
-
-        if steps > 1:
-            # K batches a launch; the rows from the device top-k
-            dummy_labels = np.zeros((host.local_batch_size, cfg.num_classes), bool)
-
-            def launch(bufs):
-                dev = distributed.stack_batches(mesh, bufs, steps,
-                                                dummy_labels=dummy_labels)
-                return (HostFetch({"host_pack": step_fn(params, *dev)}),
-                        [(b.video_ids, b.pad) for b in bufs])
-
-            for fetch, metas in distributed.stacked_ring(stream, steps, depth,
-                                                         launch):
-                gathered = distributed.gather_stacked_outputs(
-                    fetch.get()["host_pack"], [(None, pad) for _, pad in metas],
-                    model)
-                for (vids, _), got in zip(metas, gathered):
-                    progress(len(vids))
-                    yield from format_ranked_lines(vids, got["topk_idx"],
-                                                   got["topk_val"])
-            return
-
-        def emit(fetch, vids, pad):
-            preds = fetch.get()["predictions"].numpy()
-            got, _ = distributed.gather_eval_rows({"predictions": preds}, pad,
-                                                  model)
-            progress(len(vids))
-            yield from format_lines(vids, got["predictions"], args.top_k)
-
-        for (f, l, n), (vids, pad) in device_prefetch(
-                stream, device, host_keep=lambda b: (b.video_ids, b.pad)):
-            ring.append((HostFetch(step_fn(params, f, l, n), ("predictions",)),
-                         vids, pad))
-            if len(ring) > depth:
-                yield from emit(*ring.popleft())
-        while ring:
-            yield from emit(*ring.popleft())
+            yield from lines
 
     if host.is_master:
         write_predictions_csv(args.output_file, rows())
@@ -236,10 +205,10 @@ def main(argv=None):
                         choices=["none", "int8"],
                         help="int8: serve the quantized student path")
     parser.add_argument("--steps_per_dispatch", type=int, default=1,
-                        help="K > 1: K batches behind one launch, the rows "
-                        "from the device top-k (probability ties ranked "
-                        "lowest class first, which the K = 1 host ranking "
-                        "may order otherwise); 0 is read as 1")
+                        help="K batches a fetch; K > 1 takes the rows from "
+                        "the device top-k (probability ties ranked lowest "
+                        "class first, which the K = 1 host ranking may "
+                        "order otherwise); 0 and negative values read as 1")
     args = parser.parse_args(argv)
     flags_lib.dump_flags(args, logger)
     inference(args)

@@ -1,11 +1,13 @@
 """The training loop of cli.train and cli.finetune (port of the
-JAX package's cli/loop.py), and the host->device prefetch of every
-binary.
+JAX package's cli/loop.py), the eval loop of cli.eval, cli.validate and
+cli.infer, and the host->device prefetch of every binary.
 
 `device_prefetch` copies each host batch to the device one batch ahead
 (the counterpart of the JAX package's parallel/mesh.py `device_prefetch`);
 `HostFetch` queues a step's device->host copies right behind the step, so
-a later wait covers that step alone; `run_training_loop` fetches each
+a later wait covers that step alone; `eval_loop` launches every batch as
+it arrives and fetches the outputs of `--steps_per_dispatch` batches at a
+time through the lag-N ring `stacked_ring`; `run_training_loop` fetches each
 step's metrics one step late (the fetch of step N follows the launch of
 step N+1, so host logging overlaps device work), saves on the
 save_model_secs cadence through the
@@ -136,6 +138,55 @@ class HostFetch:
             if self._event is not None:
                 self._event.synchronize()
         return self._host
+
+
+def stacked_ring(batches, steps: int, depth: int, launch):
+    """Group the `batches` into stacks of `steps`, `launch(bufs)` each (an
+    in-flight handle), and yield the handles from a FIFO lag-`depth`
+    ring, popped only when MORE than `depth` launches are in flight, so
+    that much dispatch and fetch latency overlaps device work while the
+    consumer sees the per-batch loop's order. The last partial stack is
+    launched as it is."""
+    ring: deque = deque()
+    buf = []
+    for batch in batches:
+        buf.append(batch)
+        if len(buf) == steps:
+            ring.append(launch(buf))
+            buf = []
+            if len(ring) > depth:
+                yield ring.popleft()
+    if buf:
+        ring.append(launch(buf))
+    while ring:
+        yield ring.popleft()
+
+
+def eval_loop(batches, device: torch.device, steps: int, depth: int, launch,
+              keys, host_keep):
+    """The eval binaries' loop at every `--steps_per_dispatch` K. Each host
+    batch goes through `device_prefetch` and `launch(f, l, n)` (an output
+    dict) runs as soon as it is on the device; the batches of a group of
+    up to K are fetched in one `HostFetch` of their `keys`, queued behind
+    the group's last step, and a group is waited for only when more than
+    `depth` groups are in flight (`stacked_ring`). Yields `(outputs,
+    host_keep(batch))` a batch, in batch order: the epoch metrics and CSV
+    rows are those of K = 1, which is groups of one."""
+    def select(out):  # the step's other outputs are freed at once
+        return [out[key] for key in keys]
+
+    launched = ((select(launch(f, l, n)), kept) for (f, l, n), kept in
+                device_prefetch(batches, device, host_keep=host_keep))
+
+    def fetch(group):
+        outs = {(i, key): value for i, (values, _) in enumerate(group)
+                for key, value in zip(keys, values)}
+        return HostFetch(outs), [kept for _, kept in group]
+
+    for pending, kept in stacked_ring(launched, steps, depth, fetch):
+        host = pending.get()
+        for i, batch_kept in enumerate(kept):
+            yield {key: host[i, key] for key in keys}, batch_kept
 
 
 def run_training_loop(*, loader, device, state, step_fn, saver, writer, cfg,

@@ -17,11 +17,10 @@ import logging
 import os
 import sys
 import time
-from collections import deque
 from typing import Optional
 
 from efficientvideoclassification_youtube8m_torch.cli import flags as flags_lib
-from efficientvideoclassification_youtube8m_torch.cli.loop import HostFetch, device_prefetch
+from efficientvideoclassification_youtube8m_torch.cli.loop import eval_loop
 from efficientvideoclassification_youtube8m_torch.parallel import distributed
 from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
     create_mesh,
@@ -29,7 +28,6 @@ from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
 )
 from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
     build_sharded_validate_step,
-    build_sharded_validate_step_stacked,
 )
 from efficientvideoclassification_youtube8m_torch.train.checkpoint import (
     latest_checkpoint,
@@ -84,76 +82,42 @@ def eval_loader(cfg, args, frame_stride: int = 1, aggregated: bool = False,
 
 def run_eval_epoch(cfg, args, loader, device, launch, global_step_val, writer,
                    log, with_lrep=False, mesh=None):
-    """The eval binaries' epoch: a lag-`fetch_depth` FIFO ring of launched
-    batches, one packed fetch per launch (its copy queued behind its own
-    step by `HostFetch`, one row set per data index of the
-    `--model_parallelism` layout), the reference's per-batch log line to
-    the logger `log` (with the step's L_REP when `with_lrep`) and the
-    epoch summary. FIFO order keeps the epoch metrics those of the
-    sequential loop. With `--steps_per_dispatch K > 1` (then `mesh` is
-    required) `launch` is the stacked step: it takes K stacked batches
-    (`distributed.stacked_ring`, the last stack padded with dummies) and
-    its [K, B, W] host packs cross in one copy. `mesh` is the step's (a
-    model group's ranks run the batches of its first rank's loader)."""
+    """The eval binaries' epoch over `cli.loop.eval_loop` (lag
+    `fetch_depth`, one fetch a group of `--steps_per_dispatch` batches):
+    each batch's packed host outputs unpacked into one row set per data
+    index of the `--model_parallelism` layout
+    (`distributed.gather_step_outputs`), the reference's per-batch log
+    line to the logger `log` (with the step's L_REP when `with_lrep`) and
+    the epoch summary. Batch order keeps the epoch metrics those of the
+    sequential loop at every K. `mesh` is the step's (a model group's
+    ranks run the batches of its first rank's loader)."""
     evl_metrics = EvaluationMetrics(cfg.num_classes, args.top_k)
     examples_processed = 0
     start = time.time()
 
     keys = ("host_pack", "student_loss_state") if with_lrep else ("host_pack",)
-
-    def accumulate(rows, lrep):
-        nonlocal examples_processed
-        with profiling.annotate("metrics.accumulate_topk"):
-            info = evl_metrics.accumulate_topk(
-                rows["topk_val"], rows["topk_idx"], rows["labels"],
-                rows["per_example_loss"], perr_precision=rows["perr_precision"])
-        with profiling.annotate("eval.summary"):
-            examples_processed += rows["topk_val"].shape[0]
-            info["examples_per_second"] = examples_processed / (time.time() - start)
-            line = summary_lib.add_global_step_summary(
-                writer, global_step_val, info, summary_scope="Eval")
-            if with_lrep:
-                log.info("%s | L_REP: %.4f", line, float(lrep))
-            else:
-                log.info(line)
-        profiling.count("eval.batches")
-
-    def drain(fetch, labels, pad, index):
-        out = fetch.get()
+    batches = eval_loop(distributed.sync_host_streams(loader, "eval", mesh), device,
+                        max(1, args.steps_per_dispatch), max(1, cfg.fetch_depth),
+                        launch, keys, host_keep=lambda b: (b.labels, b.pad))
+    for index, (out, (labels, pad)) in enumerate(batches):
         with profiling.annotate("eval.accumulate", index):
             with profiling.annotate("eval.unpack", index):
                 rows = distributed.gather_step_outputs(out, labels, pad,
                                                        args.model_parallelism)
-            accumulate(rows, out.get("student_loss_state"))
-
-    stream = distributed.sync_host_streams(loader, "eval", mesh)
-    depth = max(1, cfg.fetch_depth)
-    steps = args.steps_per_dispatch
-    if steps > 1:
-        def launch_stack(bufs):
-            out = launch(*distributed.stack_batches(mesh, bufs, steps))
-            out = out if isinstance(out, dict) else {"host_pack": out}
-            return HostFetch(out, keys), [(b.labels, b.pad) for b in bufs]
-
-        for index, (fetch, metas) in enumerate(distributed.stacked_ring(
-                stream, steps, depth, launch_stack)):
-            out = fetch.get()
-            lrep = out.get("student_loss_state")
-            with profiling.annotate("eval.accumulate", index):
-                with profiling.annotate("eval.unpack", index):
-                    stack = list(distributed.gather_stacked_outputs(
-                        out["host_pack"], metas, args.model_parallelism))
-                for i, rows in enumerate(stack):
-                    accumulate(rows, None if lrep is None else lrep[i])
-    else:
-        ring: deque = deque()
-        for index, ((f, l, n), (labels, pad)) in enumerate(device_prefetch(
-                stream, device, host_keep=lambda b: (b.labels, b.pad))):
-            ring.append((HostFetch(launch(f, l, n), keys), labels, pad, index))
-            if len(ring) > depth:
-                drain(*ring.popleft())
-        while ring:
-            drain(*ring.popleft())
+            with profiling.annotate("metrics.accumulate_topk"):
+                info = evl_metrics.accumulate_topk(
+                    rows["topk_val"], rows["topk_idx"], rows["labels"],
+                    rows["per_example_loss"], perr_precision=rows["perr_precision"])
+            with profiling.annotate("eval.summary"):
+                examples_processed += rows["topk_val"].shape[0]
+                info["examples_per_second"] = examples_processed / (time.time() - start)
+                line = summary_lib.add_global_step_summary(
+                    writer, global_step_val, info, summary_scope="Eval")
+                if with_lrep:
+                    log.info("%s | L_REP: %.4f", line, float(out["student_loss_state"]))
+                else:
+                    log.info(line)
+            profiling.count("eval.batches")
     epoch_data = evl_metrics.get()
     epoch_data["epoch_id"] = global_step_val
     log.info(summary_lib.add_epoch_summary(
@@ -202,10 +166,7 @@ def evaluate(args):
                          opt_teacher={}, opt_student={}, global_step=0,
                          dropout_keep_prob=cfg.dropout)
     mesh = create_mesh(model=args.model_parallelism, device=device)
-    if args.steps_per_dispatch > 1:
-        step_fn = build_sharded_validate_step_stacked(cfg, mesh, top_k=args.top_k)
-    else:
-        step_fn = build_sharded_validate_step(cfg, mesh, top_k=args.top_k)
+    step_fn = build_sharded_validate_step(cfg, mesh, top_k=args.top_k)
     shard_state(state, mesh)  # each checkpoint restores into the columns
     writer = summary_lib.for_master(os.path.join(cfg.train_dir, "eval"),
                                     host.is_master)
@@ -228,9 +189,8 @@ def main(argv=None):
     flags_lib.setup_logging()
     parser = flags_lib.base_parser("Validate the student on YT8M (GPU)")
     parser.add_argument("--steps_per_dispatch", type=int, default=0,
-                        help="K > 1: K batches behind one launch and one "
-                        "packed fetch; epoch metrics are those of K = 1. "
-                        "0 = auto: 1 off the TPU")
+                        help="K batches a fetch; the epoch metrics are those "
+                        "of K = 1. 0 and negative values read as 1")
     args = parser.parse_args(argv)
     flags_lib.dump_flags(args, logger)
     return evaluate(args)

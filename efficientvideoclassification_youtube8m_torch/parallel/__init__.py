@@ -23,7 +23,6 @@ from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
     create_mesh,
     gather_state,
     make_params_specs,
-    shard_stacked_batch,
     shard_state,
     shard_state_specs,
 )
@@ -35,11 +34,9 @@ from efficientvideoclassification_youtube8m_torch.parallel.sharded_step import (
     build_shardmap_finetune_step,
     build_sharded_distill_step,
     build_sharded_eval_step,
-    build_sharded_eval_step_stacked,
     build_sharded_finetune_step,
     build_sharded_quantized_eval_step,
     build_sharded_validate_step,
-    build_sharded_validate_step_stacked,
 )
 
 __all__ = [
@@ -49,7 +46,6 @@ __all__ = [
     "distributed",
     "gather_state",
     "make_params_specs",
-    "shard_stacked_batch",
     "shard_state",
     "shard_state_specs",
     "build_sequence_parallel_state_fn",
@@ -57,9 +53,7 @@ __all__ = [
     "build_shardmap_finetune_step",
     "build_sharded_distill_step",
     "build_sharded_eval_step",
-    "build_sharded_eval_step_stacked",
     "build_sharded_finetune_step",
     "build_sharded_quantized_eval_step",
     "build_sharded_validate_step",
-    "build_sharded_validate_step_stacked",
 ]

@@ -19,8 +19,8 @@ process per device:
     step and gives the eval binaries the single-process row stream;
     `scatter_batches`: one reader's global batches cut into the ranks'
     rows (cli.infer, whose CSV keeps one process's row order);
-  * `stack_batches`, `stacked_ring`, `gather_stacked_outputs`: the
-    `--steps_per_dispatch K` loop of the eval binaries.
+  * `unpack_host_pack`, `gather_step_outputs`: a step's packed host
+    outputs as the eval binaries' rows.
 
 With no cluster in the environment every helper is a passthrough.
 Fault tolerance is the reference's: periodic checkpoints and
@@ -33,7 +33,6 @@ import dataclasses
 import datetime
 import json
 import os
-from collections import deque
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -41,7 +40,6 @@ import torch
 import torch.distributed as dist
 
 from efficientvideoclassification_youtube8m_torch.parallel.mesh import default_device
-from efficientvideoclassification_youtube8m_torch.utils import profiling
 
 # how long a rank waits for its peers at start-up and in a collective
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=600)
@@ -418,72 +416,6 @@ def unpack_host_pack(pack: np.ndarray, labels) -> Dict[str, Any]:
         "perr_precision": pack[:, m + 1],
         "labels": labels,
     }
-
-
-def gather_stacked_outputs(packs, metas, model: int = 1):
-    """The per-batch rows of ONE stacked launch
-    (`sharded_step.build_sharded_eval_step_stacked`): `packs` is the
-    [K, B, W] host-pack stack, which crosses to the host in ONE copy;
-    `metas` lists `(labels, pad)` of the REAL leading batches, fewer than
-    K when the epoch's last stack was padded with dummy batches, whose
-    slices are never read (labels None: no labels, cli.infer). Yields
-    `gather_step_outputs`-shaped row dicts in batch order, so epoch
-    metrics and CSV rows are those of the per-batch loop."""
-    pack = packs.cpu().numpy()
-    for i, (labels, pad) in enumerate(metas):
-        fields = {k: v for k, v in unpack_host_pack(pack[i], labels).items()
-                  if v is not None}
-        rows, _ = gather_eval_rows(fields, pad, model)
-        yield rows
-
-
-def stack_batches(mesh, bufs, steps: int, dummy_labels=None):
-    """The [K, ...] arrays of ONE stacked launch from the host batches
-    `bufs` on the mesh's device (`mesh.shard_stacked_batch`), the epoch's
-    last partial stack padded with fully padded dummy batches, whose
-    output slices are never read. `dummy_labels`: a fixed [B, V] array
-    broadcast to every position (cli.infer has no labels); None stacks
-    each batch's own labels."""
-    from efficientvideoclassification_youtube8m_torch.parallel.mesh import (
-        shard_stacked_batch,
-    )
-
-    with profiling.annotate("prefetch.h2d"):
-        feats = [b.features for b in bufs]
-        nfs = [b.num_frames for b in bufs]
-        for _ in range(steps - len(bufs)):
-            feats.append(np.zeros_like(feats[0]))
-            nfs.append(np.zeros_like(nfs[0]))
-        if dummy_labels is None:
-            labs = [b.labels for b in bufs]
-            labs += [np.zeros_like(labs[0])] * (steps - len(bufs))
-            labs = np.stack(labs)
-        else:
-            labs = np.broadcast_to(dummy_labels, (steps,) + dummy_labels.shape)
-        return shard_stacked_batch(mesh, np.stack(feats), labs, np.stack(nfs))
-
-
-def stacked_ring(batches, steps: int, depth: int, launch):
-    """The `--steps_per_dispatch` loop of the eval binaries: group the
-    host `batches` into stacks of `steps`, `launch(bufs)` each (an
-    in-flight handle), and yield the handles from a FIFO lag-`depth`
-    ring, popped only when MORE than `depth` launches are in flight, so
-    that much dispatch and fetch latency overlaps device work while the
-    consumer sees the per-batch loop's order (epoch metrics and CSV rows
-    bit-identical). The last partial stack is launched as it is."""
-    ring: deque = deque()
-    buf = []
-    for batch in batches:
-        buf.append(batch)
-        if len(buf) == steps:
-            ring.append(launch(buf))
-            buf = []
-            if len(ring) > depth:
-                yield ring.popleft()
-    if buf:
-        ring.append(launch(buf))
-    while ring:
-        yield ring.popleft()
 
 
 def gather_step_outputs(out: Dict[str, Any], labels, pad: int,

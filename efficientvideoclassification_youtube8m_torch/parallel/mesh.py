@@ -23,7 +23,6 @@ import dataclasses
 import os
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -33,7 +32,6 @@ from efficientvideoclassification_youtube8m_torch.ops.collectives import (
     ModelShards,
     gather_leaf,
 )
-from efficientvideoclassification_youtube8m_torch.utils import profiling
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -118,25 +116,6 @@ def create_mesh(data: Optional[int] = None, model: int = 1,
             model_group = g
     return Mesh(group=data_group, rank=rank, world_size=n, device=device,
                 data=data, model=model, model_group=model_group)
-
-
-def shard_stacked_batch(mesh: Mesh, features, labels, num_frames):
-    """A stack of K batches (`[K, B, ...]` host arrays) on the mesh's
-    device, for the `--steps_per_dispatch` eval steps. The rows are this
-    rank's: each rank stacks the batches of its own stream, as each JAX
-    process hands its own rows to `make_array_from_process_local_data`.
-    On a CUDA device each array goes through pinned memory in one
-    non-blocking copy on the current stream, so the K steps queue behind
-    the copies."""
-    def put(x):
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if mesh.device.type == "cuda":
-            with profiling.annotate("prefetch.pin"):
-                t = t.pin_memory()
-            return t.to(mesh.device, non_blocking=True)
-        return t.to(mesh.device)
-
-    return put(features), put(labels), put(num_frames)
 
 
 # ------------------------------------------------ the column rule

@@ -31,19 +31,9 @@ data index (`distributed.gather_eval_rows`) and, for DBoF's faithful
 eval keys, the global batch's frame count. The validate step also
 averages its loss scalars over the data group. Without a process group
 (`mesh.group` None) every `build_*` function returns the plain step.
-
-`--steps_per_dispatch K` (the `_stacked` steps): the JAX package
-scans the per-batch step over K stacked batches in one launch. Here the
-stacked step runs the per-batch step on each of the K slices, one after
-another, and stacks the host packs into one output buffer, which crosses
-to the host in one copy. One batched launch at K * B rows would change
-the kernels' shapes, and the rows would no longer be bit for bit those
-of K = 1.
 """
 
 from __future__ import annotations
-
-import torch
 
 from efficientvideoclassification_youtube8m_torch.parallel.mesh import Mesh
 from efficientvideoclassification_youtube8m_torch.train.optimizer import Optimizer
@@ -146,44 +136,3 @@ def build_sharded_quantized_eval_step(cfg: TrainConfig, mesh: Mesh,
     would need the same split as the kernels)."""
     _data_parallel_only(mesh, "--quantize int8 eval")
     return build_quantized_eval_step(cfg, top_k, host_subsampled=host_subsampled)
-
-
-def build_sharded_validate_step_stacked(cfg: TrainConfig, mesh: Mesh,
-                                        top_k: int = 20):
-    """`build_sharded_validate_step` over K stacked batches ([K, B, ...]
-    inputs): the packed host buffers [K, B, W] and the per-batch L_REP
-    ([K]) that cli.validate logs."""
-    step = build_sharded_validate_step(cfg, mesh, top_k)
-
-    def stacked(teacher, student, features_u8, labels, num_frames):
-        outs = [step(teacher, student, f, l, n)
-                for f, l, n in zip(features_u8, labels, num_frames)]
-        return {"host_pack": torch.stack([o["host_pack"] for o in outs]),
-                "student_loss_state": torch.stack(
-                    [o["student_loss_state"] for o in outs])}
-
-    return stacked
-
-
-def build_sharded_eval_step_stacked(cfg: TrainConfig, mesh: Mesh,
-                                    top_k: int = 20,
-                                    host_subsampled: bool = False,
-                                    aggregated: bool = False,
-                                    quantized: bool = False):
-    """`build_sharded_eval_step` (or, `quantized`, the int8 eval step,
-    whose params are quantized; data-parallel only, a model axis raises
-    ValueError as in JAX) over K stacked batches: the packed host
-    buffers [K, B, W]."""
-    if quantized:
-        step = build_sharded_quantized_eval_step(cfg, mesh, top_k,
-                                                 host_subsampled=host_subsampled)
-    else:
-        step = build_sharded_eval_step(cfg, mesh, top_k,
-                                       host_subsampled=host_subsampled,
-                                       aggregated=aggregated)
-
-    def stacked(params, features_u8, labels, num_frames):
-        return torch.stack([step(params, f, l, n)["host_pack"]
-                            for f, l, n in zip(features_u8, labels, num_frames)])
-
-    return stacked

@@ -301,7 +301,7 @@ def test_uneven_eval_shards_gather_every_row(ranks, kind):
     for r0_r1 in ranks["results"]:
         for key in ("avg_hit_at_one", "avg_perr", "avg_loss", "gap"):
             assert float(r0_r1[f"cli_{kind}/{key}"]) == float(want[key]), key
-            # three batches a launch (the last stack padded with dummies):
+            # three batches a fetch (the last group holds what is left):
             # the same rank metrics, the mean loss within an f32 ulp's bar
             got = float(r0_r1[f"cli_{kind}_k3/{key}"])
             if key == "avg_loss":

@@ -313,11 +313,11 @@ def test_run_eval_epoch_spans_at_k(shards, train_dir, tmp_path, k):
     assert set(spans) == LOOP_SPANS
     assert counters == {"loader.videos": VIDEOS, "eval.batches": 7}
     assert spans["metrics.accumulate_topk"]["count"] == spans["eval.summary"]["count"] == 7
-    stacks = math.ceil(7 / k)
-    assert spans["fetch.enqueue"]["count"] == spans["fetch.wait"]["count"] == stacks
-    assert spans["eval.accumulate"]["count"] == spans["eval.unpack"]["count"] == stacks
-    assert spans["prefetch.h2d"]["count"] == stacks
-    assert spans["step.eval"]["count"] == stacks * k  # a partial stack runs dummies
+    groups = math.ceil(7 / k)  # one fetch a group of k batches
+    assert spans["fetch.enqueue"]["count"] == spans["fetch.wait"]["count"] == groups
+    assert spans["eval.accumulate"]["count"] == spans["eval.unpack"]["count"] == 7
+    assert spans["prefetch.h2d"]["count"] == 7
+    assert spans["step.eval"]["count"] == 7  # the last group runs its one batch
     assert spans["loader.assemble"]["count"] == spans["loader.queue_wait"]["count"] == 7
     for s in spans.values():
         assert 0 <= s["self_seconds"] <= s["seconds"]

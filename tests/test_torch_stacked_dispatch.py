@@ -1,12 +1,14 @@
 """`--steps_per_dispatch K > 1` in the port on the CPU: cli.eval (bf16,
 int8) and cli.validate at K = 3 against K = 1 over 7 batches (a partial
-last stack, padded with dummy batches), the JAX CLI identity tests' bars
+last group of one batch), the JAX CLI identity tests' bars
 (tests/test_stacked_eval.py, tests/test_pipeline_e2e.py: rank metrics
 and every AP bit-equal, avg_loss within an f32 ulp's tolerance);
 cli.infer at K = 3 against the JAX binary at K = 3 on a checkpoint whose
 MoE classes come in identical pairs, so every row's top-k holds exact
-probability ties, ranked lowest class first by both; and `stacked_ring`
-against the JAX package's on streams of every length class."""
+probability ties, ranked lowest class first by both; `cli.loop`'s
+`stacked_ring` against the JAX package's on streams of every length
+class; and cli.eval at K = 3 sending every batch through
+`device_prefetch` and launching the per-batch step once a batch."""
 
 import jax
 import numpy as np
@@ -24,8 +26,8 @@ from efficientvideoclassification_youtube8m_tpu.train import (
     student_state_from_distill as jax_student_state_from_distill,
 )
 from efficientvideoclassification_youtube8m_torch.cli import eval as eval_cli
-from efficientvideoclassification_youtube8m_torch.cli import flags, infer, validate
-from efficientvideoclassification_youtube8m_torch.parallel import distributed, sharded_step
+from efficientvideoclassification_youtube8m_torch.cli import flags, infer, loop, validate
+from efficientvideoclassification_youtube8m_torch.parallel import sharded_step
 from efficientvideoclassification_youtube8m_torch.parallel.mesh import Mesh
 from efficientvideoclassification_youtube8m_torch.train.checkpoint import save_checkpoint
 from efficientvideoclassification_youtube8m_torch.train.optimizer import make_optimizer
@@ -41,7 +43,7 @@ TINY_FLAGS = [
     "--num_readers", "1", "--top_k", "5", "--scan_unroll", "1",
     "--device", "cpu", "--run_once", "true",
 ]
-VIDEOS = 53  # 7 batches of 8, the last with 3 padding rows: stacks 3 + 3 + 1
+VIDEOS = 53  # 7 batches of 8, the last with 3 padding rows: groups 3 + 3 + 1
 # the CSV bar of tests/test_torch_infer.py (6 printed decimals)
 TOL_CSV = 1e-5
 
@@ -143,7 +145,7 @@ def test_stacked_ring_matches_jax(length, depth):
             events.append(("yield", handle))
         return events
 
-    got = run(distributed.stacked_ring)
+    got = run(loop.stacked_ring)
     assert got == run(jdist.stacked_ring)
     launches = [e[1] for e in got if e[0] == "launch"]
     assert [x for stack in launches for x in stack] == list(range(length))
@@ -156,13 +158,45 @@ def test_stacked_ring_matches_jax(length, depth):
 
 def test_stacked_int8_eval_is_data_parallel_only():
     """As in the JAX package (parallel/sharded_step.py:267-268): the int8
-    stacked eval refuses a model axis."""
+    eval step that every K runs refuses a model axis with the JAX stacked
+    builder's message."""
     cfg = flags.config_from_args(flags.base_parser("").parse_args(TINY_FLAGS))
     mesh = Mesh(group=None, rank=0, world_size=2, device=torch.device("cpu"),
                 data=1, model=2)
     with pytest.raises(ValueError, match="data-parallel only") as port:
-        sharded_step.build_sharded_eval_step_stacked(cfg, mesh, quantized=True)
+        sharded_step.build_sharded_quantized_eval_step(cfg, mesh)
     jmesh = jparallel.create_mesh(model=2, devices=jax.devices()[:2])
     with pytest.raises(ValueError, match="data-parallel only") as jax_error:
         jparallel.build_sharded_eval_step_stacked(cfg, jmesh, {}, quantized=True)
     assert str(port.value) == str(jax_error.value)
+
+
+def test_every_batch_is_prefetched_and_launched_once_at_k(setup, monkeypatch):
+    """cli.eval at K = 3 over 7 batches: each batch goes through
+    `cli.loop.device_prefetch` and the per-batch step runs once a batch,
+    the last group holding its one batch and no dummies."""
+    prefetched, launched = [], []
+    real_prefetch, real_build = loop.device_prefetch, eval_cli.build_sharded_eval_step
+
+    def prefetch(*a, **k):
+        for item in real_prefetch(*a, **k):
+            prefetched.append(item[1])
+            yield item
+
+    def build(*a, **k):
+        step = real_build(*a, **k)
+
+        def counted(*args):
+            launched.append(args[1].shape)
+            return step(*args)
+        return counted
+
+    monkeypatch.setattr(loop, "device_prefetch", prefetch)
+    monkeypatch.setattr(eval_cli, "build_sharded_eval_step", build)
+    eval_cli.main(TINY_FLAGS + ["--compute_dtype", "float32", "--steps_per_dispatch", "3",
+                                "--train_dir", setup["train_dir"],
+                                "--eval_data_pattern", setup["pattern"]])
+    batches = -(-VIDEOS // 8)
+    assert len(prefetched) == len(launched) == batches == 7
+    assert [pad for _, pad in prefetched] == [0] * 6 + [batches * 8 - VIDEOS]
+    assert all(shape[0] == 8 for shape in launched)

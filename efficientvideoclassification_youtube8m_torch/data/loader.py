@@ -10,6 +10,14 @@ producer/consumer design:
     -> bounded video queue (capacity ~= 50 * batch like the reference)
       -> batch assembler with an in-memory shuffle buffer
 
+In file order with the native parser (no shuffle; one reader, or several
+without `deterministic`) the port takes a shorter route with no Python a
+video: native reader threads (`native.FrameBatcher`) parse each video
+straight into its row of a batch block that the consumer handed in ahead
+(`_IN_FLIGHT` of them), and the consumer takes the blocks back filled, in
+order. Training's shuffle buffer, deterministic input with several
+readers and the pure-Python parser keep the route above.
+
 Batches carry RAW uint8 features — dequantize/l2-normalize run on the
 device inside the step — so host->device traffic is 1/4 of the f32
 equivalent. Files can be sharded across hosts (`shard_index` /
@@ -28,6 +36,8 @@ import os
 import queue
 import random
 import threading
+import time
+from collections import deque
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -40,6 +50,8 @@ from efficientvideoclassification_youtube8m_torch.utils import profiling
 _STOP = object()
 _FILE_END = object()
 _STREAM_END = object()
+# blocks handed to the native batcher ahead of the consumer
+_IN_FLIGHT = 8
 
 _allocator_tuned = False
 
@@ -213,7 +225,8 @@ class FrameDataLoader:
     def _file_stream(self, rng: random.Random) -> Iterator[str]:
         """Epoch-concatenated (optionally per-epoch shuffled) file paths;
         infinite when num_epochs is None (string_input_producer
-        semantics)."""
+        semantics). The native batcher's shared cursor walks the same
+        unshuffled stream."""
         epoch = 0
         while self.num_epochs is None or epoch < self.num_epochs:
             shard_list = list(self.files)
@@ -360,6 +373,81 @@ class FrameDataLoader:
             stop.set()  # unwind blocked readers if the consumer bailed
 
     def __iter__(self) -> Iterator[FrameBatch]:
+        if self._fills_in_place():
+            return self._batches_in_place()
+        return self._batches_of_videos()
+
+    def _fills_in_place(self) -> bool:
+        """Whether the native batcher fills the batches: in file order, with
+        the native parser, and where its readers' order needs no keeping
+        (one reader, or several without `deterministic`)."""
+        return (not self.shuffle and self._native is not None
+                and (not self.deterministic or self.num_readers == 1))
+
+    def _batches_in_place(self) -> Iterator[FrameBatch]:
+        """Batches that `native.FrameBatcher`'s threads parse straight into
+        blocks from `_array` (pinned with a CUDA device, so `device_prefetch`
+        sends them as they are), `_IN_FLIGHT` blocks handed in ahead. The
+        stream is `_file_stream`'s, unshuffled; a final short batch is
+        padded, dropped or cut as on the per-video route. The threads are
+        joined before any block the generator holds is let go."""
+        B = self.batch_size
+        off_at = time.time_ns()
+        batcher = self._native.FrameBatcher(
+            self.files, self.num_epochs, self.feature_names, self.feature_sizes,
+            self.max_frames, self.frame_stride, self.vocab_size,
+            labels_cap=max(64, self.vocab_size), batch_size=B,
+            num_readers=self.num_readers)
+        blocks: deque = deque()
+
+        def hand_in():
+            block = (self._array((B, self.feature_rows, self.total_size), np.uint8,
+                                 zero=False),
+                     self._array((B, self.vocab_size), bool, zero=False),
+                     self._array((B,), np.int32, zero=False),
+                     np.empty((B, self._native.ID_CAP), np.uint8))
+            batcher.add(*block)
+            blocks.append(block)
+
+        try:
+            for _ in range(_IN_FLIGHT):
+                hand_in()
+            while True:
+                with profiling.annotate("loader.queue_wait"):
+                    n = batcher.next()
+                off_at = _move_parse_spans(batcher, off_at)
+                if n == 0 or (n < B and self.drop_remainder):
+                    return
+                with profiling.annotate("loader.assemble"):
+                    features, labels, num_frames, ids = blocks.popleft()
+                    pad = B - n if self.pad_final_batch else 0
+                    if n < B and pad:
+                        features[n:] = 0
+                        labels[n:] = False
+                        num_frames[n:] = 0
+                    elif n < B:  # the tail in blocks of its own size
+                        features, labels, num_frames = (
+                            self._whole(a[:n]) for a in (features, labels, num_frames))
+                    batch = FrameBatch(
+                        self._native.video_ids(ids[:n].tobytes(), n) + [""] * pad,
+                        features, labels, num_frames, pad=pad)
+                    if n == B:
+                        hand_in()
+                profiling.count("loader.in_place")
+                profiling.count("loader.videos", n)
+                yield batch
+                if n < B:  # the stream ended in this batch
+                    return
+        finally:
+            batcher.close()
+
+    def _whole(self, a: np.ndarray) -> np.ndarray:
+        """A copy of `a` in an array of its own from `_array`."""
+        out = self._array(a.shape, a.dtype, zero=False)
+        out[...] = a
+        return out
+
+    def _batches_of_videos(self) -> Iterator[FrameBatch]:
         # distinct Random instances: the file stream's is advanced inside
         # reader threads while the consumer thread draws from the shuffle
         # buffer — sharing one would race and break the seeded determinism
@@ -479,12 +567,30 @@ class AggregatedBatch:
         return np.ones((self.features.shape[0],), np.int32)
 
 
+def _move_parse_spans(batcher, off_at: int) -> int:
+    """Move the batcher's logged parse stretches into the program's spans as
+    `loader.parse` records of its reader threads while a profiler runs, and
+    drop them otherwise. `off_at` is the last time (ns on `time.time_ns`'s
+    clock) the consumer saw no profiler running, or the batcher's start; a
+    stretch that starts before it is dropped, so the records start at most
+    a batch before the profiler did. Returns the new `off_at`."""
+    if not profiling.enabled():
+        batcher.drop_spans()
+        return time.time_ns()
+    spans = batcher.spans()
+    profiling.add_spans("loader.parse", spans[spans[:, 1] >= off_at].tolist())
+    return off_at
+
+
 class AggregatedDataLoader(FrameDataLoader):
     """Video-level (pre-aggregated Example) loader — the rebuild of
     `YT8MAggregatedFeatureReader` (readers.py:53-112). Reuses the frame
     loader's thread/shuffle machinery; only parsing + assembly differ
     (the `_iter_file` override never consults the native FRAME parser,
     whatever `use_native` was passed)."""
+
+    def _fills_in_place(self) -> bool:
+        return False  # the native batcher parses frame records only
 
     def _iter_file(self, path: str):
         for record in TFRecordReader(path):

@@ -1,6 +1,7 @@
 """ctypes bindings for the native YT8M TFRecord/SequenceExample parser
 and the AP heap kernels (a copy of the JAX package's data/native, with
-its own build).
+its own build), and for the port's own batcher (`FrameBatcher`): native
+reader threads that parse a file stream straight into batch blocks.
 
 Builds the library from yt8m_io.cc and heap.cc on first use (g++ -O3; a
 few seconds) into `build/native/` at the root of the checkout, named by a
@@ -13,14 +14,16 @@ no compiler is present.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
 import platform
 import subprocess
 import threading
+import weakref
 from pathlib import Path
-from typing import Iterator, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -30,7 +33,7 @@ _DIR = Path(__file__).resolve().parent
 _SOURCES = (_DIR / "yt8m_io.cc", _DIR / "heap.cc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "native"
 _FLAGS = (
-    "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+    "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread",
     # no FMA contraction: the AP sweep (heap.cc) must reproduce the
     # Python float op sequence bit-for-bit (mul+add contracted into
     # fma rounds once instead of twice)
@@ -41,7 +44,7 @@ _lib = None
 _lib_path: Optional[Path] = None
 _build_failed = False  # negative cache: one compile attempt per process
 _lock = threading.Lock()
-_ID_CAP = 256
+ID_CAP = 256
 
 
 def library_path() -> Path:
@@ -108,6 +111,29 @@ def _load():
         lib.yt8m_error.restype = ctypes.c_char_p
         lib.yt8m_error.argtypes = [ctypes.c_void_p]
         lib.yt8m_close.argtypes = [ctypes.c_void_p]
+        _u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.yt8m_batcher_open.restype = ctypes.c_void_p
+        lib.yt8m_batcher_open.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # nfeat, max_frames, stride
+            ctypes.c_int32, ctypes.c_int32,  # vocab, labels_cap
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # batch, id_cap, readers
+        ]
+        lib.yt8m_batcher_add.restype = None
+        lib.yt8m_batcher_add.argtypes = [ctypes.c_void_p, _u8p, _u8p,
+                                         ctypes.POINTER(ctypes.c_int32), _u8p]
+        lib.yt8m_batcher_next.restype = ctypes.c_int32
+        lib.yt8m_batcher_next.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+        lib.yt8m_batcher_error.restype = ctypes.c_char_p
+        lib.yt8m_batcher_error.argtypes = [ctypes.c_void_p]
+        lib.yt8m_batcher_span_count.restype = ctypes.c_int64
+        lib.yt8m_batcher_span_count.argtypes = [ctypes.c_void_p]
+        lib.yt8m_batcher_spans.restype = ctypes.c_int64
+        lib.yt8m_batcher_spans.argtypes = [ctypes.c_void_p,
+                                           ctypes.POINTER(ctypes.c_int64), ctypes.c_int64]
+        lib.yt8m_batcher_close.restype = None
+        lib.yt8m_batcher_close.argtypes = [ctypes.c_void_p]
         lib.yt8m_crc32c.restype = ctypes.c_uint32
         lib.yt8m_crc32c.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_uint64]
         lib.yt8m_crc32c_ext.restype = ctypes.c_uint32
@@ -259,7 +285,7 @@ def read_frame_file(
         num_frames = np.empty((batch,), np.int32)
         labels = np.empty((batch, labels_cap), np.int32)
         num_labels = np.empty((batch,), np.int32)
-        ids = ctypes.create_string_buffer(batch * _ID_CAP)
+        ids = ctypes.create_string_buffer(batch * ID_CAP)
         out_rows = (max_frames + stride - 1) // stride
         while True:
             # fresh buffer per batch so the yielded views stay valid
@@ -271,14 +297,14 @@ def read_frame_file(
                 labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                 labels_cap,
                 num_labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                ids, _ID_CAP,
+                ids, ID_CAP,
             )
             if n < 0:
                 raise IOError(
                     f"parse error in {path}: {lib.yt8m_error(reader).decode()}"
                 )
+            vids = video_ids(ids.raw, n)
             for i in range(n):
-                vid = ids.raw[i * _ID_CAP : (i + 1) * _ID_CAP].split(b"\0", 1)[0]
                 if num_labels[i] > labels_cap:
                     # the C parser reports the TRUE count but stores only
                     # the first labels_cap — refusing beats silently
@@ -289,7 +315,7 @@ def read_frame_file(
                         "larger labels_cap (the loader sizes it to the "
                         "vocabulary)")
                 yield FrameVideo(
-                    video_id=vid.decode("utf-8", "replace"),
+                    video_id=vids[i],
                     labels=labels[i, : num_labels[i]].tolist(),
                     features=feats[i],  # zero-copy view; buffer not reused
                     num_frames=int(num_frames[i]),
@@ -299,3 +325,108 @@ def read_frame_file(
                 return
     finally:
         lib.yt8m_close(reader)
+
+
+def video_ids(raw: bytes, n: int) -> List[str]:
+    """The first `n` ids of `raw`, `ID_CAP` bytes an id, each up to its
+    first NUL."""
+    return [raw[i * ID_CAP:(i + 1) * ID_CAP].split(b"\0", 1)[0].decode("utf-8", "replace")
+            for i in range(n)]
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+_open_batchers: "weakref.WeakSet" = weakref.WeakSet()
+
+
+@atexit.register
+def _close_batchers() -> None:
+    """Stop every batcher's threads before the interpreter frees the blocks
+    they write into."""
+    for batcher in list(_open_batchers):
+        batcher.close()
+
+
+class FrameBatcher:
+    """Native reader threads that parse the videos of a file stream straight
+    into the rows of batch blocks (yt8m_io.cc `yt8m_batcher_*`), with no
+    Python a video.
+
+    `num_readers` threads take the files of `paths` in turn, the list
+    repeated `num_epochs` times (endless when None). A thread reads a whole
+    record, then claims the next free row of the oldest block that has
+    one, so no row is left a hole: with one reader the rows follow the
+    stream's order. Each row gets its features (strided, the padding rows
+    zeroed), a dense labels row (every class `0 <= c < vocab_size`), its
+    frame count and its id. The caller hands blocks in (`add`) and takes
+    them back filled, in the same order (`next`); `close` stops and joins
+    the threads, after which none writes into a block."""
+
+    def __init__(self, paths: Sequence[str], num_epochs: Optional[int],
+                 feature_names: Sequence[str], feature_sizes: Sequence[int],
+                 max_frames: int, stride: int, vocab_size: int, labels_cap: int,
+                 batch_size: int, num_readers: int):
+        self._lib = _load()
+        if self._lib is None:
+            raise RuntimeError("native parser unavailable")
+        self.batch_size = batch_size
+        self._handle = None
+        files = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
+        names = (ctypes.c_char_p * len(feature_names))(*[n.encode() for n in feature_names])
+        sizes = (ctypes.c_int32 * len(feature_sizes))(*feature_sizes)
+        handle = self._lib.yt8m_batcher_open(
+            files, len(paths), -1 if num_epochs is None else num_epochs, names, sizes,
+            len(feature_names), max_frames, max(1, stride), vocab_size, labels_cap,
+            batch_size, ID_CAP, num_readers)
+        if not handle:
+            raise OSError("cannot start the native batcher's threads")
+        self._handle = handle
+        _open_batchers.add(self)
+
+    def add(self, features: np.ndarray, labels: np.ndarray, num_frames: np.ndarray,
+            ids: np.ndarray) -> None:
+        """Hand in a block: C-contiguous features [B, rows, total] uint8,
+        labels [B, vocab] bool, num_frames [B] int32 and ids [B, ID_CAP]
+        uint8. The caller keeps them alive until `next` hands the block
+        back or `close` returns."""
+        self._lib.yt8m_batcher_add(self._handle, _ptr(features, ctypes.c_uint8),
+                                   _ptr(labels, ctypes.c_uint8),
+                                   _ptr(num_frames, ctypes.c_int32),
+                                   _ptr(ids, ctypes.c_uint8))
+
+    def next(self) -> int:
+        """Wait for the oldest block handed in and return its rows: the
+        batch, fewer only where the stream ended, 0 once it has. Raises
+        IOError with the parser's message on a parse error. The wait is
+        a call that lets go of the interpreter lock, cut every 100 ms so
+        that a signal reaches the caller."""
+        while True:
+            rows = self._lib.yt8m_batcher_next(self._handle, 100)
+            if rows != -2:
+                break
+        if rows < 0:
+            raise IOError(self._lib.yt8m_batcher_error(self._handle).decode())
+        return rows
+
+    def spans(self) -> np.ndarray:
+        """The readers' busy stretches logged since the last call, [n, 3]
+        int64: (native thread id, start ns, end ns) on CLOCK_REALTIME
+        (`time.time_ns`'s clock). A stretch runs from reading a record to
+        the end of its row, less any wait for a block."""
+        out = np.empty((self._lib.yt8m_batcher_span_count(self._handle), 3), np.int64)
+        # the readers only add stretches, so all of the counted ones move
+        self._lib.yt8m_batcher_spans(self._handle, _ptr(out, ctypes.c_int64), len(out))
+        return out
+
+    def drop_spans(self) -> None:
+        """Forget the busy stretches logged so far."""
+        self._lib.yt8m_batcher_spans(self._handle, None, 0)
+
+    def close(self) -> None:
+        """Stop and join the threads (idempotent)."""
+        handle, self._handle = self._handle, None
+        if handle:
+            _open_batchers.discard(self)
+            self._lib.yt8m_batcher_close(handle)

@@ -13,17 +13,33 @@
 //   labels:   int32 class ids (video-level, from the context)
 //   id:       UTF-8 video id
 //
+// Two entry points share one decoder: the per-file reader (yt8m_open /
+// yt8m_next_batch), which fills a caller's arrays a video at a time, and
+// the batcher (yt8m_batcher_*), whose own threads parse the videos of a
+// whole file stream straight into the rows of the batch blocks the caller
+// hands in, with no Python per video.
+//
 // Wire format notes: TFRecord framing is {u64 len, u32 masked crc(len),
 // data, u32 masked crc(data)}; SequenceExample is
 //   { Features context = 1; FeatureLists feature_lists = 2; }
 // with Features/FeatureLists being map<string, Feature/FeatureList> and
 // Feature { BytesList=1 | FloatList=2 | Int64List=3 }.
 
+#include <sys/syscall.h>
+#include <time.h>
+#include <unistd.h>
+
+#include <algorithm>
+#include <chrono>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <deque>
 #include <exception>
+#include <mutex>
 #include <string>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -135,8 +151,8 @@ struct StringView {
 // Reader
 // ---------------------------------------------------------------------------
 
-struct Yt8mReader {
-  FILE* f = nullptr;
+// The requested features and how a video's rows are laid out.
+struct Layout {
   std::vector<std::string> names;
   std::vector<int32_t> sizes;
   std::vector<int32_t> col_offsets;  // column offset per feature
@@ -144,6 +160,27 @@ struct Yt8mReader {
   int32_t max_frames = 0;
   int32_t stride = 1;     // keep every stride-th frame (student paths)
   int32_t out_rows = 0;   // ceil(max_frames / stride): rows per video
+
+  Layout(const char* const* feature_names, const int32_t* feature_sizes,
+         int32_t nfeat, int32_t max_frames_, int32_t stride_)
+      : max_frames(max_frames_), stride(stride_ < 1 ? 1 : stride_) {
+    out_rows = (max_frames + stride - 1) / stride;
+    for (int32_t i = 0; i < nfeat; i++) {
+      names.emplace_back(feature_names[i]);
+      sizes.push_back(feature_sizes[i]);
+      col_offsets.push_back(total_size);
+      total_size += feature_sizes[i];
+    }
+  }
+
+  size_t video_bytes() const { return size_t(out_rows) * total_size; }
+};
+
+struct Yt8mReader {
+  explicit Yt8mReader(const Layout& l) : layout(l) {}
+
+  FILE* f = nullptr;
+  Layout layout;
   bool verify_crc = false;
   std::string error;
   std::vector<uint8_t> record;  // reusable record buffer
@@ -261,54 +298,16 @@ void feature_int64s(Cursor c, std::vector<int64_t>* out) {
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-Yt8mReader* yt8m_open(const char* path, const char* const* names,
-                      const int32_t* sizes, int32_t nfeat, int32_t max_frames,
-                      int32_t verify_crc, int32_t stride) {
-  FILE* f = fopen(path, "rb");
-  if (!f) return nullptr;
-  setvbuf(f, nullptr, _IOFBF, 1 << 20);
-  auto* r = new Yt8mReader();
-  r->f = f;
-  r->max_frames = max_frames;
-  r->stride = stride < 1 ? 1 : stride;
-  r->out_rows = (max_frames + r->stride - 1) / r->stride;
-  r->verify_crc = verify_crc != 0;
-  int32_t off = 0;
-  for (int32_t i = 0; i < nfeat; i++) {
-    r->names.emplace_back(names[i]);
-    r->sizes.push_back(sizes[i]);
-    r->col_offsets.push_back(off);
-    off += sizes[i];
-  }
-  r->total_size = off;
-  return r;
-}
-
-const char* yt8m_error(Yt8mReader* r) { return r ? r->error.c_str() : "null"; }
-
-void yt8m_close(Yt8mReader* r) {
-  if (!r) return;
-  if (r->f) fclose(r->f);
-  delete r;
-}
-
-// Parse one video. feat_out: [max_frames * total_size] u8 (caller-zeroed or
-// we zero pad rows); labels_out: [labels_cap] i32; id_out: [id_cap] char.
-// Returns 1 ok, 0 eof, -1 error.
-int32_t yt8m_next(Yt8mReader* r, uint8_t* feat_out, int32_t* num_frames_out,
-                  int32_t* labels_out, int32_t labels_cap,
-                  int32_t* num_labels_out, char* id_out, int32_t id_cap) {
-  int rc = r->next_record();
-  if (rc <= 0) return rc;
-
-  Cursor top{r->record.data(), r->record.data() + r->record.size()};
-  StringView video_id;
-  std::vector<int64_t> labels;
+// Decodes one SequenceExample into `feat_out` (layout.video_bytes() bytes:
+// every kept frame row written, the padding rows zeroed), the ORIGINAL
+// (capped) frame count, the label ids and the video id (a view into
+// `record`). Returns nullptr, or the error.
+const char* decode_video(const Layout& L, const std::vector<uint8_t>& record,
+                         uint8_t* feat_out, int32_t* num_frames_out,
+                         std::vector<int64_t>* labels, StringView* video_id) {
+  Cursor top{record.data(), record.data() + record.size()};
   int32_t num_frames = -1;
+  size_t matched = 0;  // requested features found in the record
 
   while (top.ok && !top.done()) {
     uint64_t tag = top.varint();
@@ -341,9 +340,9 @@ int32_t yt8m_next(Yt8mReader* r, uint8_t* feat_out, int32_t* num_frames_out,
           }
           if (key.p) {
             if (key.eq("id")) {
-              video_id = feature_first_bytes(feat);
+              *video_id = feature_first_bytes(feat);
             } else if (key.eq("labels")) {
-              feature_int64s(feat, &labels);
+              feature_int64s(feat, labels);
             }
           }
         } else {
@@ -376,12 +375,13 @@ int32_t yt8m_next(Yt8mReader* r, uint8_t* feat_out, int32_t* num_frames_out,
             }
           }
           // match requested feature names
-          for (size_t fi = 0; fi < r->names.size(); fi++) {
-            if (key.p == nullptr || key.n != r->names[fi].size() ||
-                memcmp(key.p, r->names[fi].data(), key.n) != 0)
+          for (size_t fi = 0; fi < L.names.size(); fi++) {
+            if (key.p == nullptr || key.n != L.names[fi].size() ||
+                memcmp(key.p, L.names[fi].data(), key.n) != 0)
               continue;
-            const int32_t size = r->sizes[fi];
-            const int32_t col = r->col_offsets[fi];
+            matched++;
+            const int32_t size = L.sizes[fi];
+            const int32_t col = L.col_offsets[fi];
             int32_t frame = 0;
             Cursor fl = flist;
             while (fl.ok && !fl.done()) {
@@ -390,18 +390,16 @@ int32_t yt8m_next(Yt8mReader* r, uint8_t* feat_out, int32_t* num_frames_out,
               if ((ltag >> 3) == 1 && (ltag & 7) == 2) {  // Feature
                 uint64_t ln = fl.varint();
                 Cursor feat = fl.slice(ln);
-                if (frame < r->max_frames) {
+                if (frame < L.max_frames) {
                   // every frame's payload size is still VALIDATED (the
-                  // pure-Python parser rejects corrupt frames too); the
-                  // stride only skips the memcpy of dropped frames
+                  // pure-Python parser rejects corrupt frames too, a
+                  // frame with no bytes among them); the stride only
+                  // skips the memcpy of dropped frames
                   StringView bytes = feature_first_bytes(feat);
-                  if (bytes.p && int32_t(bytes.n) != size) {
-                    r->fail("frame feature size mismatch");
-                    return -1;
-                  }
-                  if (bytes.p && frame % r->stride == 0) {
-                    memcpy(feat_out +
-                               size_t(frame / r->stride) * r->total_size + col,
+                  if (!bytes.p || int32_t(bytes.n) != size)
+                    return "frame feature size mismatch";
+                  if (frame % L.stride == 0) {
+                    memcpy(feat_out + size_t(frame / L.stride) * L.total_size + col,
                            bytes.p, size);
                   }
                 }
@@ -415,8 +413,7 @@ int32_t yt8m_next(Yt8mReader* r, uint8_t* feat_out, int32_t* num_frames_out,
             } else if (num_frames != frame) {
               // the reference asserts per-feature frame-count equality
               // (readers.py:229)
-              r->fail("per-feature frame counts differ");
-              return -1;
+              return "per-feature frame counts differ";
             }
           }
         } else {
@@ -427,21 +424,232 @@ int32_t yt8m_next(Yt8mReader* r, uint8_t* feat_out, int32_t* num_frames_out,
       top.skip(wt);
     }
   }
-  if (!top.ok) {
-    r->fail("malformed SequenceExample");
-    return -1;
-  }
+  if (!top.ok) return "malformed SequenceExample";
+  // a requested feature the record lacks has no frames, like the
+  // pure-Python parser's; its columns would otherwise go unwritten
+  if (matched < L.names.size() && num_frames > 0)
+    return "per-feature frame counts differ";
 
   if (num_frames < 0) num_frames = 0;
-  if (num_frames > r->max_frames) num_frames = r->max_frames;
+  if (num_frames > L.max_frames) num_frames = L.max_frames;
   // num_frames reports the ORIGINAL (capped) count even under stride —
   // the consumers' seq-length math runs on original frame counts
   *num_frames_out = num_frames;
   // zero the padding rows of the (possibly strided) output
-  const int32_t kept = (num_frames + r->stride - 1) / r->stride;
-  if (kept < r->out_rows)
-    memset(feat_out + size_t(kept) * r->total_size, 0,
-           size_t(r->out_rows - kept) * r->total_size);
+  const int32_t kept = (num_frames + L.stride - 1) / L.stride;
+  if (kept < L.out_rows)
+    memset(feat_out + size_t(kept) * L.total_size, 0,
+           size_t(L.out_rows - kept) * L.total_size);
+  return nullptr;
+}
+
+// Copies the id, cut to id_cap - 1 bytes, and its terminating NUL.
+void copy_id(const StringView& id, char* out, int32_t id_cap) {
+  int32_t idn = int32_t(id.n);
+  if (idn >= id_cap) idn = id_cap - 1;
+  if (idn > 0) memcpy(out, id.p, idn);
+  out[idn < 0 ? 0 : idn] = '\0';
+}
+
+// ---------------------------------------------------------------------------
+// Batcher: reader threads that parse a file stream into the caller's blocks
+// ---------------------------------------------------------------------------
+
+// time.time_ns's clock, the one the program's spans are kept on
+int64_t realtime_ns() {
+  timespec ts;
+  clock_gettime(CLOCK_REALTIME, &ts);
+  return int64_t(ts.tv_sec) * 1000000000 + ts.tv_nsec;
+}
+
+// One batch's arrays, handed in by the caller: features [batch, out_rows,
+// total_size] u8, labels [batch, vocab] bool, num_frames [batch] i32, ids
+// [batch, id_cap] char. A thread claims a row (`claimed`) once it holds a
+// whole record, and counts it `done` once the row is written.
+struct Block {
+  uint8_t* features;
+  uint8_t* labels;
+  int32_t* num_frames;
+  char* ids;
+  int32_t claimed = 0;
+  int32_t done = 0;
+};
+
+// A reader's busy stretches are kept as (thread id, start, end) triples
+// on CLOCK_REALTIME, up to this many a drain.
+constexpr size_t kMaxSpans = size_t(1) << 18;
+
+struct Batcher {
+  explicit Batcher(const Layout& l) : layout(l) {}
+
+  Layout layout;
+  std::vector<std::string> files;
+  int64_t files_total = -1;  // files.size() x epochs; -1: endless
+  int32_t batch = 0, vocab = 0, labels_cap = 0, id_cap = 0;
+
+  std::mutex mu;  // guards everything below
+  std::condition_variable rows_free;   // a block with an unclaimed row
+  std::condition_variable block_done;  // the oldest block can go out
+  int64_t next_file = 0;
+  std::deque<Block> blocks;  // handed in and not yet handed out, oldest first
+  int32_t live = 0;          // reader threads still running
+  bool stop = false;
+  std::string error;         // the first error, as the consumer raises it
+  std::vector<int64_t> spans;
+  std::vector<std::thread> threads;
+
+  // The oldest block's rows can go out: all written, or the stream has
+  // ended (no thread left, none failed) and every row claimed is written.
+  bool front_ready() const {
+    const Block& b = blocks.front();
+    return b.done == batch || (live == 0 && error.empty() && b.done == b.claimed);
+  }
+
+  void fail(const std::string& msg) {
+    std::lock_guard<std::mutex> lk(mu);
+    if (error.empty()) error = msg;
+    rows_free.notify_all();
+    block_done.notify_all();
+  }
+
+  // The next file of the stream, or false once it has ended or failed.
+  bool take_file(std::string* path) {
+    std::lock_guard<std::mutex> lk(mu);
+    if (stop || !error.empty()) return false;
+    if (files_total >= 0 && next_file >= files_total) return false;
+    *path = files[size_t(next_file++ % int64_t(files.size()))];
+    return true;
+  }
+
+  // Claims the next row of the oldest block with one free, waiting for
+  // the caller to hand a block in; false on stop or error. `waited` says
+  // whether it had to wait.
+  bool claim(Block** block, int32_t* row, bool* waited) {
+    std::unique_lock<std::mutex> lk(mu);
+    *waited = false;
+    for (;;) {
+      if (stop || !error.empty()) return false;
+      for (Block& b : blocks) {
+        if (b.claimed < batch) {
+          *block = &b;
+          *row = b.claimed++;
+          return true;
+        }
+      }
+      *waited = true;
+      rows_free.wait(lk);
+    }
+  }
+
+  void finish_row(Block* block, int64_t tid, int64_t t0, int64_t t1,
+                  int64_t t2, int64_t t3) {
+    std::lock_guard<std::mutex> lk(mu);
+    if (spans.size() + 6 <= 3 * kMaxSpans) {
+      if (t2 > t1) {  // waited for a block: two busy stretches
+        spans.insert(spans.end(), {tid, t0, t1, tid, t2, t3});
+      } else {
+        spans.insert(spans.end(), {tid, t0, t3});
+      }
+    }
+    block->done++;
+    if (block == &blocks.front() && block->done == batch) block_done.notify_one();
+  }
+
+  void read_file(const std::string& path, Yt8mReader* r,
+                 std::vector<int64_t>* labels, int64_t tid) {
+    r->f = fopen(path.c_str(), "rb");
+    if (!r->f) return fail("cannot open " + path);
+    setvbuf(r->f, nullptr, _IOFBF, 1 << 20);
+    const size_t row_bytes = layout.video_bytes();
+    for (;;) {
+      const int64_t t0 = realtime_ns();
+      const int rc = r->next_record();
+      if (rc == 0) break;
+      if (rc < 0) return fail("parse error in " + path + ": " + r->error);
+      const int64_t t1 = realtime_ns();
+      Block* b;
+      int32_t row;
+      bool waited;
+      if (!claim(&b, &row, &waited)) return;
+      const int64_t t2 = waited ? realtime_ns() : t1;
+      labels->clear();
+      StringView id;
+      const char* err = decode_video(layout, r->record, b->features + row * row_bytes,
+                                     b->num_frames + row, labels, &id);
+      if (err) return fail("parse error in " + path + ": " + err);
+      if (labels->size() > size_t(labels_cap)) {
+        return fail("record in " + path + " has " + std::to_string(labels->size()) +
+                    " labels > labels_cap " + std::to_string(labels_cap) +
+                    "; pass a larger labels_cap (the loader sizes it to the vocabulary)");
+      }
+      uint8_t* dense = b->labels + size_t(row) * vocab;
+      memset(dense, 0, vocab);
+      for (int64_t c : *labels)
+        if (0 <= c && c < vocab) dense[c] = 1;
+      copy_id(id, b->ids + size_t(row) * id_cap, id_cap);
+      finish_row(b, tid, t0, t1, t2, realtime_ns());
+    }
+  }
+
+  void run_reader() {
+    const int64_t tid = int64_t(syscall(SYS_gettid));
+    Yt8mReader r(layout);
+    std::vector<int64_t> labels;
+    std::string path;
+    try {
+      while (take_file(&path)) {
+        read_file(path, &r, &labels, tid);
+        if (r.f) fclose(r.f);
+        r.f = nullptr;
+      }
+    } catch (const std::exception&) {  // allocation: never unwind past here
+      if (r.f) fclose(r.f);
+      fail("reader thread failed (allocation)");
+    }
+    std::lock_guard<std::mutex> lk(mu);
+    live--;
+    block_done.notify_one();
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+Yt8mReader* yt8m_open(const char* path, const char* const* names,
+                      const int32_t* sizes, int32_t nfeat, int32_t max_frames,
+                      int32_t verify_crc, int32_t stride) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return nullptr;
+  setvbuf(f, nullptr, _IOFBF, 1 << 20);
+  auto* r = new Yt8mReader(Layout(names, sizes, nfeat, max_frames, stride));
+  r->f = f;
+  r->verify_crc = verify_crc != 0;
+  return r;
+}
+
+const char* yt8m_error(Yt8mReader* r) { return r ? r->error.c_str() : "null"; }
+
+void yt8m_close(Yt8mReader* r) {
+  if (!r) return;
+  if (r->f) fclose(r->f);
+  delete r;
+}
+
+// Parse one video. feat_out: [out_rows * total_size] u8 (we write every
+// byte: the padding rows are zeroed); labels_out: [labels_cap] i32;
+// id_out: [id_cap] char. Returns 1 ok, 0 eof, -1 error.
+int32_t yt8m_next(Yt8mReader* r, uint8_t* feat_out, int32_t* num_frames_out,
+                  int32_t* labels_out, int32_t labels_cap,
+                  int32_t* num_labels_out, char* id_out, int32_t id_cap) {
+  int rc = r->next_record();
+  if (rc <= 0) return rc;
+
+  std::vector<int64_t> labels;
+  StringView video_id;
+  const char* err = decode_video(r->layout, r->record, feat_out, num_frames_out,
+                                 &labels, &video_id);
+  if (err) return r->fail(err), -1;
 
   // nl counts ALL labels; only the first labels_cap are stored. The
   // Python side raises when nl > labels_cap — silent truncation would
@@ -454,11 +662,7 @@ int32_t yt8m_next(Yt8mReader* r, uint8_t* feat_out, int32_t* num_frames_out,
     nl++;
   }
   *num_labels_out = nl;
-
-  int32_t idn = int32_t(video_id.n);
-  if (idn >= id_cap) idn = id_cap - 1;
-  if (idn > 0) memcpy(id_out, video_id.p, idn);
-  id_out[idn < 0 ? 0 : idn] = '\0';
+  copy_id(video_id, id_out, id_cap);
   return 1;
 }
 
@@ -468,7 +672,7 @@ int32_t yt8m_next_batch(Yt8mReader* r, int32_t n, uint8_t* feat_out,
                         int32_t* num_frames_out, int32_t* labels_out,
                         int32_t labels_cap, int32_t* num_labels_out,
                         char* ids_out, int32_t id_cap) {
-  const size_t feat_stride = size_t(r->out_rows) * r->total_size;
+  const size_t feat_stride = r->layout.video_bytes();
   int32_t count = 0;
   while (count < n) {
     int32_t rc = yt8m_next(r, feat_out + count * feat_stride,
@@ -481,6 +685,108 @@ int32_t yt8m_next_batch(Yt8mReader* r, int32_t n, uint8_t* feat_out,
     count++;
   }
   return count;
+}
+
+// Starts `num_readers` threads over the stream of `paths`, repeated
+// `num_epochs` times (endless when negative). Each thread takes the next
+// file, reads a record, claims the next row of the oldest block handed in
+// with one free, and decodes the record into it. Returns nullptr if the
+// threads cannot start.
+Batcher* yt8m_batcher_open(const char* const* paths, int32_t npaths,
+                           int64_t num_epochs, const char* const* names,
+                           const int32_t* sizes, int32_t nfeat, int32_t max_frames,
+                           int32_t stride, int32_t vocab, int32_t labels_cap,
+                           int32_t batch, int32_t id_cap, int32_t num_readers) {
+  auto* b = new Batcher(Layout(names, sizes, nfeat, max_frames, stride));
+  for (int32_t i = 0; i < npaths; i++) b->files.emplace_back(paths[i]);
+  b->files_total = num_epochs < 0 ? -1 : int64_t(npaths) * num_epochs;
+  b->batch = batch;
+  b->vocab = vocab;
+  b->labels_cap = labels_cap;
+  b->id_cap = id_cap;
+  b->live = num_readers;
+  try {
+    for (int32_t i = 0; i < num_readers; i++)
+      b->threads.emplace_back(&Batcher::run_reader, b);
+  } catch (const std::exception&) {
+    {
+      std::lock_guard<std::mutex> lk(b->mu);
+      b->stop = true;
+      b->live -= num_readers - int32_t(b->threads.size());
+    }
+    b->rows_free.notify_all();
+    for (auto& t : b->threads) t.join();
+    delete b;
+    return nullptr;
+  }
+  return b;
+}
+
+// Hands in a block for the threads to fill; blocks go out in the order
+// they came in.
+void yt8m_batcher_add(Batcher* b, uint8_t* features, uint8_t* labels,
+                      int32_t* num_frames, char* ids) {
+  {
+    std::lock_guard<std::mutex> lk(b->mu);
+    b->blocks.push_back(Block{features, labels, num_frames, ids});
+  }
+  b->rows_free.notify_all();
+}
+
+// Waits up to `timeout_ms` for the oldest block handed in. Returns its
+// rows, from then on the caller's and written by no thread (fewer than
+// the batch only where the stream ended; 0: the stream has ended), -1 on
+// an error (yt8m_batcher_error), -2 if the wait timed out.
+int32_t yt8m_batcher_next(Batcher* b, int32_t timeout_ms) {
+  std::unique_lock<std::mutex> lk(b->mu);
+  if (b->blocks.empty()) {
+    if (b->error.empty()) b->error = "no block handed in";
+    return -1;
+  }
+  const bool ready = b->block_done.wait_for(
+      lk, std::chrono::milliseconds(timeout_ms),
+      [b] { return b->front_ready() || !b->error.empty(); });
+  if (!ready) return -2;
+  if (!b->front_ready()) return -1;
+  const int32_t rows = b->blocks.front().done;
+  b->blocks.pop_front();
+  return rows;
+}
+
+const char* yt8m_batcher_error(Batcher* b) { return b->error.c_str(); }
+
+// How many busy stretches the readers have logged and not yet given up.
+int64_t yt8m_batcher_span_count(Batcher* b) {
+  std::lock_guard<std::mutex> lk(b->mu);
+  return int64_t(b->spans.size() / 3);
+}
+
+// Moves up to `cap` of the readers' logged busy stretches, oldest first,
+// into `out` as (thread id, start ns, end ns) on CLOCK_REALTIME, and
+// returns how many; with no `out`, drops them all.
+int64_t yt8m_batcher_spans(Batcher* b, int64_t* out, int64_t cap) {
+  std::lock_guard<std::mutex> lk(b->mu);
+  if (!out) {
+    b->spans.clear();
+    return 0;
+  }
+  const int64_t n = std::min<int64_t>(cap, int64_t(b->spans.size() / 3));
+  std::copy(b->spans.begin(), b->spans.begin() + 3 * n, out);
+  b->spans.erase(b->spans.begin(), b->spans.begin() + 3 * n);
+  return n;
+}
+
+// Stops and joins the threads, then frees the batcher: no thread writes
+// into a block after this returns.
+void yt8m_batcher_close(Batcher* b) {
+  if (!b) return;
+  {
+    std::lock_guard<std::mutex> lk(b->mu);
+    b->stop = true;
+  }
+  b->rows_free.notify_all();
+  for (auto& t : b->threads) t.join();
+  delete b;
 }
 
 uint32_t yt8m_crc32c(const uint8_t* data, uint64_t n) { return crc32c(data, n); }

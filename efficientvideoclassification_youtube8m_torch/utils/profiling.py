@@ -18,6 +18,8 @@ those. Beside them:
     enclosing span on the same thread) and an optional batch index,
     which the spans of one batch share.
   * `count(name, n=1)`: a counter, under the same switch.
+  * `add_spans(name, spans)`: spans that threads running no Python (the
+    native batcher's readers) logged themselves, recorded as theirs.
   * `totals()`: for each span name its count, total seconds and self
     seconds (the duration less what its child spans cover), and the
     counters, since the last `reset()`. Each thread keeps its own, so a
@@ -33,10 +35,19 @@ at `--steps_per_dispatch` 1 and K > 1; the training loop shares the
 prefetch and the fetch):
 
   loader.queue_wait   the loader's consumer taking a batch's videos off
-                      the readers' queue, its waits included
-  loader.assemble     the consumer assembling a batch (`_assemble`)
-  loader.parse        a reader thread advancing its parser by one video
-  loader.videos       (counter) videos parsed
+                      the readers' queue, its waits included; on the
+                      native batcher's path (`FrameDataLoader`, in order)
+                      its wait for the oldest block the readers fill
+  loader.assemble     the consumer assembling a batch (`_assemble`); on
+                      the batcher's path building the batch from its
+                      block (ids, a short tail) and handing a block in
+  loader.parse        a reader thread advancing its parser by one video;
+                      on the batcher's path a native reader reading a
+                      record and writing its row, less any wait for a
+                      block (logged by the reader, added by the consumer)
+  loader.videos       (counter) videos parsed (a batch at a time on the
+                      batcher's path)
+  loader.in_place     (counter) batches the native batcher filled
   prefetch.h2d        a batch's host->device copy enqueued, its staging
                       in pinned memory (`prefetch.pin`) included
   prefetch.staged     (counter) arrays copied into pinned memory
@@ -79,13 +90,14 @@ class _Store:
     """One thread's span totals and counters. Only its thread writes them,
     so a span takes no lock: one lock shared by the loader's reader
     threads and its consumer, taken twice a video, makes them queue for
-    it and then for the interpreter lock."""
+    it and then for the interpreter lock. A thread that runs no Python
+    has its store written by the thread that adds its spans."""
 
     __slots__ = ("generation", "tid", "spans", "counters")
 
-    def __init__(self, generation: int):
+    def __init__(self, generation: int, tid: Optional[int] = None):
         self.generation = generation
-        self.tid = threading.get_native_id()
+        self.tid = threading.get_native_id() if tid is None else tid
         self.spans: Dict[str, tuple] = {}  # name -> (count, total ns, self ns)
         self.counters: Dict[str, int] = {}
 
@@ -107,6 +119,7 @@ class _Registry:
             self.generation += 1
             self.ring: collections.deque = collections.deque(maxlen=RING)
             self.stores: list = []
+            self.others: Dict[int, _Store] = {}  # by thread id: threads running no Python
 
     def stack(self) -> list:
         stack = getattr(self.local, "stack", None)
@@ -121,6 +134,14 @@ class _Registry:
                 store = self.local.store = _Store(self.generation)
                 self.stores.append(store)
         return store
+
+    def other_store(self, tid: int) -> _Store:
+        with self.lock:
+            store = self.others.get(tid)
+            if store is None:
+                store = self.others[tid] = _Store(self.generation, tid)
+                self.stores.append(store)
+            return store
 
 
 _REGISTRY = _Registry()
@@ -180,6 +201,29 @@ def annotate(name: str, batch: Optional[int] = None):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _Span(name, batch)
+
+
+def enabled() -> bool:
+    """Whether spans and counters record now (a profiler runs)."""
+    return bool(_autograd_profiler._is_profiler_enabled)
+
+
+def add_spans(name: str, spans) -> None:
+    """Record spans that threads running no Python logged themselves:
+    `spans` holds (native thread id, start ns, end ns) on `time.time_ns`'s
+    clock. Each is a record of its thread, with no parent or batch, and
+    adds to that thread's totals, while a profiler runs."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    reg = _REGISTRY
+    stores: Dict[int, _Store] = {}
+    for tid, start, end in spans:
+        reg.ring.append((name, tid, start, end, None, None))
+        store = stores.get(tid)
+        if store is None:
+            store = stores[tid] = reg.other_store(tid)
+        count, total, own = store.spans.get(name, (0, 0, 0))
+        store.spans[name] = (count + 1, total + end - start, own + end - start)
 
 
 def count(name: str, n: int = 1) -> None:

@@ -136,3 +136,27 @@ def test_device_topk_and_perr(seed, tied):
     np.testing.assert_array_equal(np.asarray(si), ti)
     np.testing.assert_array_equal(np.asarray(jeu.perr_precision_on_device(
         jnp.asarray(preds), jnp.asarray(labels))), tp)
+
+
+class _NoProduct(np.ndarray):
+    """A label matrix that refuses a matrix product: a BLAS call on the eval
+    loop's thread leaves OpenBLAS's thread team spinning on every core,
+    where the loader's native readers need the cores."""
+
+    def __matmul__(self, other):
+        raise AssertionError("a BLAS product over the labels")
+
+    __rmatmul__ = __matmul__
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+def test_label_counts_take_no_blas_product(layout):
+    """`accumulate_topk`'s label counts come from integer sums, with no BLAS
+    product, and equal the plain counts, whatever the matrix's layout."""
+    labels = np.random.default_rng(7).random((40, 2 * V)) < 0.2
+    if layout == "strided":
+        labels = labels[:, ::2]
+    pos, rows = teu._label_count_reductions(labels.view(_NoProduct), need_rows=True)
+    np.testing.assert_array_equal(pos, labels.sum(axis=0))
+    np.testing.assert_array_equal(rows, labels.sum(axis=1))
+    assert pos.dtype == rows.dtype == np.int64

@@ -17,6 +17,7 @@ import torch
 from efficientvideoclassification_youtube8m_torch.cli import loop
 from efficientvideoclassification_youtube8m_torch.cli.loop import device_prefetch
 from efficientvideoclassification_youtube8m_torch.data import FrameDataLoader
+from efficientvideoclassification_youtube8m_torch.data import loader as loader_lib
 from efficientvideoclassification_youtube8m_torch.data import native, yt8m
 from efficientvideoclassification_youtube8m_torch.utils import profiling
 
@@ -156,7 +157,10 @@ def test_pinned_batches_equal_plain_batches(shards, monkeypatch, use_native,
     """With a CUDA device the loader assembles each batch in blocks of the
     host allocator, every array a whole block that `device_prefetch` sends
     as it is; byte for byte they are the batches of the plain route, the
-    tail's padding rows included, whatever stale bytes the blocks held."""
+    tail's padding rows included, whatever stale bytes the blocks held.
+    In order with the native parser the batcher fills them: it takes
+    `_IN_FLIGHT` blocks ahead and one more a full batch, and copies a
+    short tail without padding into blocks of its own."""
     kw = dict(frame_stride=frame_stride, shuffle=shuffle, seed=4,
               pad_final_batch=pad_final_batch)
     plain = list(_loader(shards, use_native, **kw))
@@ -166,7 +170,11 @@ def test_pinned_batches_equal_plain_batches(shards, monkeypatch, use_native,
 
     blocks = _host_allocator(monkeypatch)
     pinned = list(_loader(shards, use_native, **kw))
-    assert len(blocks) == 3 * len(plain)
+    if use_native and not shuffle:
+        full = len(plain) - 1
+        assert len(blocks) == 3 * (loader_lib._IN_FLIGHT + full + (not pad_final_batch))
+    else:
+        assert len(blocks) == 3 * len(plain)
     assert len(pinned) == len(plain)
     for p, q in zip(plain, pinned):
         assert (q.video_ids, q.pad) == (p.video_ids, p.pad)
@@ -289,21 +297,27 @@ def test_device_prefetch_on_the_card(streams, depth):
             assert torch.equal(d.cpu(), torch.from_numpy(a))
 
 
+ROUTES = {"batcher": dict(deterministic=False), "per_video": dict(deterministic=True)}
+
+
 @pytest.mark.card
+@pytest.mark.parametrize("route", sorted(ROUTES))
 @pytest.mark.parametrize("depth", [1, 4])
 def test_loader_blocks_through_device_prefetch_on_the_card(tmp_path, streams, monkeypatch,
-                                                           depth):
+                                                           depth, route):
     """20 full-frame batches (256 x 300 x 1152) that a `FrameDataLoader`
-    assembles in blocks of the host allocator go to the card through
-    `device_prefetch` with no staging copy. The side stream sleeps longer
-    before each batch's copy than the loader takes for a batch, so it falls
-    behind: copies are still to run when the loader assembles later batches
-    and their blocks have been dropped. The loop consumes each batch on the
-    device and drops it at once, and, like the eval loop's fetch, waits for
-    the device only one batch behind. Every device batch equals a snapshot
-    of its host bytes taken before its copy, so no block was handed out
-    again while a copy still had to read it; and the allocator makes at
-    most (depth + 3) x 3 blocks."""
+    assembles in blocks of the host allocator, or that the native batcher
+    fills there, go to the card through `device_prefetch` with no staging
+    copy. The side stream sleeps longer before each batch's copy than the
+    loader takes for a batch, so it falls behind: copies are still to run
+    when the loader fills later batches and their blocks have been
+    dropped. The loop consumes each batch on the device and drops it at
+    once, and, like the eval loop's fetch, waits for the device only one
+    batch behind. Every device batch equals a snapshot of its host bytes
+    taken before its copy, so no block was handed out again while a copy
+    still had to read it; and the allocator makes at most (depth + 3) x 3
+    blocks, and `_IN_FLIGHT` x 3 more for the batcher's blocks handed in
+    ahead."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     device = torch.device("cuda", 0)
@@ -314,7 +328,9 @@ def test_loader_blocks_through_device_prefetch_on_the_card(tmp_path, streams, mo
                                          seed=s, vocab_size=3862)
     loader = FrameDataLoader(str(tmp_path / "pool-*.tfrecord"), batch_size=256,
                              vocab_size=3862, num_readers=4, num_epochs=None,
-                             shuffle=False)
+                             shuffle=False, **ROUTES[route])
+    in_place = route == "batcher"
+    assert loader._fills_in_place() == in_place
     staged = []
     stage = loop._stage
     monkeypatch.setattr(loop, "_stage", lambda a: staged.append(a.shape) or stage(a))
@@ -331,18 +347,24 @@ def test_loader_blocks_through_device_prefetch_on_the_card(tmp_path, streams, mo
 
     before = torch.cuda.host_memory_stats().get("num_host_alloc", 0)
     consumed, kept_intact, lag = [], [], deque()
-    for dev, kept in device_prefetch(batches(), device, depth=depth):
-        kept_intact.append(np.array_equal(kept, snapshots[len(consumed)][1]))
-        consumed.append([d.clone() for d in dev])
-        lag.append(current.record_event())
-        if len(lag) > 1:
-            lag.popleft().synchronize()
-        del dev, kept
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for dev, kept in device_prefetch(batches(), device, depth=depth):
+            kept_intact.append(np.array_equal(kept, snapshots[len(consumed)][1]))
+            consumed.append([d.clone() for d in dev])
+            lag.append(current.record_event())
+            if len(lag) > 1:
+                lag.popleft().synchronize()
+            del dev, kept
     torch.cuda.synchronize(device)
+    counters = profiling.totals()["counters"]
+    assert counters.get("prefetch.staged", 0) == 0
+    assert counters.get("loader.in_place", 0) == (20 if in_place else 0)
     assert len(consumed) == len(snapshots) == 20 and staged == []
     assert consumed[0][0].shape == (256, 300, 1152)
     for got, want in zip(consumed, snapshots):
         for d, a in zip(got, want):
             assert torch.equal(d.cpu(), torch.from_numpy(a))
     assert all(kept_intact)
-    assert torch.cuda.host_memory_stats()["num_host_alloc"] - before <= (depth + 3) * 3
+    ahead = loader_lib._IN_FLIGHT if in_place else 0
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] - before <= (depth + 3 + ahead) * 3

@@ -7,6 +7,7 @@ bounds its ring. Then the spans and counters of the loader (both
 streams, both parsers) and of `cli.eval`'s `run_eval_epoch` at
 `--steps_per_dispatch` 1 and 4."""
 
+import itertools
 import json
 import math
 import os
@@ -262,7 +263,10 @@ def test_loader_spans_and_counter(shards, deterministic, use_native):
     main = threading.get_native_id()
     tot = profiling.totals()
     assert len(batches) == 7
-    assert tot["counters"] == {"loader.videos": VIDEOS}
+    # in order, the native batcher fills the batches unless the order of
+    # several readers is kept
+    in_place = {"loader.in_place": 7} if use_native and not deterministic else {}
+    assert tot["counters"] == {"loader.videos": VIDEOS, **in_place}
     spans = tot["spans"]
     assert spans["loader.assemble"]["count"] == 7
     assert spans["loader.parse"]["count"] >= VIDEOS
@@ -272,6 +276,45 @@ def test_loader_spans_and_counter(shards, deterministic, use_native):
         tids.setdefault(name, set()).add(tid)
     assert tids["loader.queue_wait"] == tids["loader.assemble"] == {main}
     assert main not in tids["loader.parse"] and 1 <= len(tids["loader.parse"]) <= 2
+
+
+def test_the_batchers_parse_spans_are_its_readers_inside_the_trace(shards, tmp_path):
+    """Under `trace`, an endless in-order stream filled by the native
+    batcher: its `loader.parse` records are those of its reader threads
+    (threads that run no Python), each inside the traced stretch, their
+    totals what the records add up to, and `portbench/spans.busy_share`
+    reads a share of the readers' time from them."""
+    from portbench import spans as bench_spans
+
+    if not native.available():
+        pytest.skip("the native parser did not build here")
+    loader = FrameDataLoader(
+        str(shards / "eval-*.tfrecord"), batch_size=8, feature_sizes=SIZES["feature_sizes"],
+        max_frames=SIZES["max_frames"], vocab_size=SIZES["vocab_size"], num_readers=2,
+        num_epochs=None, shuffle=False, frame_stride=2)
+    assert loader._fills_in_place()
+    with profiling.trace(str(tmp_path / "trace"), device="cpu") as t:
+        start = time.time_ns()
+        for _ in itertools.islice(loader, 30):
+            with profiling.annotate("eval.accumulate"):
+                _spin(0.002)
+        end = time.time_ns()
+    python_threads = {th.native_id for th in threading.enumerate()}
+    recs = [r for r in profiling.records() if r[0] == "loader.parse"]
+    tids = {r[1] for r in recs}
+    assert len(recs) >= 30 * 8 and len(tids) == 2
+    assert not tids & python_threads
+    assert all(start <= r[2] < r[3] <= end and r[4:] == (None, None) for r in recs)
+    parse = t.totals["spans"]["loader.parse"]
+    assert parse["count"] == len(recs)
+    assert math.isclose(parse["seconds"], sum(r[3] - r[2] for r in recs) * 1e-9)
+    assert t.totals["counters"]["loader.in_place"] == 30
+
+    class Run:
+        flags = {"num_readers": 2}
+
+    share = bench_spans.busy_share(Run(), "loader.parse")
+    assert 0 < share < 100
 
 
 # ------------------------------------------------ run_eval_epoch's spans
@@ -311,7 +354,8 @@ def test_run_eval_epoch_spans_at_k(shards, train_dir, tmp_path, k):
     assert result is not None
     spans, counters = t.totals["spans"], t.totals["counters"]
     assert set(spans) == LOOP_SPANS
-    assert counters == {"loader.videos": VIDEOS, "eval.batches": 7}
+    # cli.eval reads in order: the native batcher fills the batches
+    assert counters == {"loader.videos": VIDEOS, "eval.batches": 7, "loader.in_place": 7}
     assert spans["metrics.accumulate_topk"]["count"] == spans["eval.summary"]["count"] == 7
     groups = math.ceil(7 / k)  # one fetch a group of k batches
     assert spans["fetch.enqueue"]["count"] == spans["fetch.wait"]["count"] == groups

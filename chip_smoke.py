@@ -23,9 +23,10 @@ kernel's device time alone, the replay of a CUDA graph of one call
      (HGMMA for bf16, IGMMA for int8) fed by TMA (UTMALDG) and no legacy
      mma.sync (HMMA, IMMA);
   2. `lstm_chunk_scan` against `lstm_chunk_scan_reference` in bf16 at the
-     student and teacher layer shapes and a ragged one, with times, each
-     beside its bound (ops/kernels/bounds.py), its share of the bound, its
-     TFLOP/s and the earlier design's time from PERF.md;
+     student and teacher layer shapes, a ragged one and the two layers of
+     the LSTM baseline's eval (`LstmModel`, 300 steps at batch 256), with
+     times, each beside its bound (ops/kernels/bounds.py), its share of
+     the bound, its TFLOP/s and the earlier design's time from PERF.md;
   3. the student tower at the flagship config (TrainConfig defaults in
      bf16: D=1152, 2x1024 LSTMs, 4716 classes, MoE 2, every_n=10, 5
      chunks, random weights from a seed) serving requests of 256, 100
@@ -158,7 +159,14 @@ kernel's device time alone, the replay of a CUDA graph of one call
      epoch lines and summaries and the train losses bit-equal to the
      drivers'; then run_train_multihost.sh as one rank writing an orbax
      directory, its losses equal to run_train.sh's; each driver's wall
-     and `time` seconds. Last, no module of jax, flax, msgpack or the JAX
+     and `time` seconds;
+ 18. the YouTube-8M LSTM baseline (`--model LstmModel`, 2 x 1024 cells,
+     MoE of 2 over 4716 classes) at its published widths through
+     cli.eval, cli.validate and cli.infer at batch 256 over two batches of
+     full-frame videos (300 frames, every_n 1), each with the scan's
+     launch count set to 0 just before it and checked just after (2, 4
+     and 2 calls a batch), cli.eval's epoch traced for its 600 kernel
+     steps a batch. Last, no module of jax, flax, msgpack or the JAX
      package is loaded and nothing was written into the JAX package's
      directory.
 
@@ -249,6 +257,7 @@ from efficientvideoclassification_youtube8m_torch.train.optimizer import (
     make_optimizer,
 )
 from efficientvideoclassification_youtube8m_torch.train.state import (
+    DistillState,
     StudentState,
     init_distill_state,
     params_of,
@@ -322,6 +331,12 @@ LAYER_SHAPES = [
     ("ragged", 7, 13, 48, 40),
     ("single_step", 1, 9, 16, 24),  # the train backward's prologue alone
     ("odd_width", 5, 24, 100, 40),  # H the wrappers zero-pad (104 bf16, 112 int8)
+]
+# The two layers of the LSTM baseline's eval at batch 256 (`LstmModel`,
+# the benchmark's lstm_eval.b256): 300 steps, D_in 1152 and then 1024.
+LSTM_EVAL_SHAPES = [
+    ("lstm_eval_L1", 300, 256, 1024, 1152),
+    ("lstm_eval_L2", 300, 256, 1024, 1024),
 ]
 SERVE_BATCH = 256
 FLAGSHIP_SHAPES = [s for s in LAYER_SHAPES if s[0].startswith(("student", "teacher"))]
@@ -491,7 +506,7 @@ def phase_kernel():
     gen = torch.Generator().manual_seed(0)
     worst = 0.0
     times = {}
-    for name, T, B, H, D in LAYER_SHAPES:
+    for name, T, B, H, D in LAYER_SHAPES + LSTM_EVAL_SHAPES:
         args, err = check_scan_case(name, T, B, H, D, gen)
         iters = 20 if B >= 256 else 5
         ms = cuda_ms(lambda: lstm_scan.lstm_chunk_scan(*args), iters)
@@ -500,7 +515,7 @@ def phase_kernel():
         times[name] = (ms, replay_ms, plain_ms)
         log(f"[2] {name}: kernel {ms:.4f} ms (graph replay {replay_ms:.4f}), "
             f"plain {plain_ms:.4f} ms")
-        if (name, T, B, H, D) in FLAGSHIP_SHAPES:
+        if (name, T, B, H, D) in FLAGSHIP_SHAPES + LSTM_EVAL_SHAPES:
             log(f"[2] {name}: " + against_bound("lstm_chunk_scan", name, T, B, H, ms,
                                                 replay_ms))
         worst = max(worst, *err.values())
@@ -3470,6 +3485,76 @@ def jax_package_files():
     return sorted(os.path.join(d, f) for d, _, files in os.walk(root) for f in files)
 
 
+LSTM_MODEL_BATCHES = 2
+# the calls of `lstm_chunk_scan` a batch: one a layer of each forward
+# (cli.validate runs both towers of the state)
+LSTM_MODEL_CALLS = {"eval": 2, "validate": 4, "infer": 2}
+
+
+def phase_lstm_model(root: str, smi: str) -> dict:
+    """18: `--model LstmModel` at its published widths through cli.eval,
+    cli.validate and cli.infer at batch 256 over two batches of
+    full-frame videos, each with the scan's launch count set to 0 just
+    before it; cli.eval traced for `lstm.step_launches`. Returns the calls
+    a batch of each binary."""
+    data_dir = os.path.join(root, "lstm_model")
+    os.makedirs(data_dir)
+    B = 256
+    for s in range(LSTM_MODEL_BATCHES):
+        port_data.write_synthetic_frame_shard(
+            os.path.join(data_dir, f"eval-{s:04d}.tfrecord"), num_videos=B, seed=180 + s)
+    pattern = os.path.join(data_dir, "eval-*.tfrecord")
+    train_dir = os.path.join(root, "lstm_model_train")
+    argv = ["--model", "LstmModel", "--lstm_cells", "1024", "--lstm_layers", "2",
+            "--num_classes", "4716", "--moe_num_mixtures", "2", "--batch_size", str(B),
+            "--max_num_frames", "300", "--every_n", "1", "--num_readers", "4",
+            "--device", "cuda", "--run_once", "true", "--compute_dtype", "bfloat16",
+            "--top_k", "20", "--train_dir", train_dir]
+    cfg = flags.config_from_args(flags.base_parser("").parse_args(argv))
+    device = torch.device("cuda", 0)
+    state = DistillState(teacher=init_model(cfg, device=device),
+                         student=init_model(cfg, device=device), opt_teacher={},
+                         opt_student={}, global_step=1, dropout_keep_prob=1.0)
+    checkpoint.save_checkpoint(train_dir, state, 1)
+    del state
+    per_batch = {}
+    for binary in ("eval", "validate", "infer"):
+        lstm_scan.lstm_chunk_scan.launches = 0
+        t0 = time.perf_counter()
+        if binary == "eval":
+            with profiling.trace(os.path.join(root, "lstm_model_trace"), device=device) as t:
+                epoch = eval_cli.main(argv + ["--eval_data_pattern", pattern])
+            steps = t.totals["counters"].get("lstm.step_launches", 0)
+            if steps != 600 * LSTM_MODEL_BATCHES:
+                raise AssertionError(f"18 cli.eval: {steps} kernel steps, expected "
+                                     f"{600 * LSTM_MODEL_BATCHES}")
+        elif binary == "validate":
+            epoch = validate_cli.main(argv + ["--eval_data_pattern", pattern])
+        else:
+            out = os.path.join(root, "lstm_model.csv")
+            infer_cli.main(argv + ["--input_data_pattern", pattern, "--output_file", out])
+            with open(out) as f:
+                rows = sum(1 for _ in f) - 1
+            if rows != B * LSTM_MODEL_BATCHES:
+                raise AssertionError(f"18 cli.infer wrote {rows} rows")
+            epoch = None
+        seconds = time.perf_counter() - t0
+        calls = lstm_scan.lstm_chunk_scan.launches
+        per_batch[binary] = calls / LSTM_MODEL_BATCHES
+        log(f"[18] cli.{binary} --model LstmModel: {calls} scan calls over "
+            f"{LSTM_MODEL_BATCHES} batches of {B} (expected "
+            f"{LSTM_MODEL_CALLS[binary]} a batch), {seconds:.1f} s"
+            + ("" if epoch is None else f", avg_loss {epoch['avg_loss']:.6f}, "
+               f"gap {epoch['gap']:.6f}"))
+        if calls != LSTM_MODEL_CALLS[binary] * LSTM_MODEL_BATCHES:
+            raise AssertionError(f"18 cli.{binary}: {calls} scan calls")
+        if epoch is not None and not math.isfinite(epoch["avg_loss"]):
+            raise AssertionError(f"18 cli.{binary}: avg_loss {epoch['avg_loss']}")
+    log(f"[18] LstmModel at its published widths: 600 kernel steps a batch under "
+        f"cli.eval's trace ({smi})")
+    return per_batch
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -3509,6 +3594,7 @@ def main() -> None:
         orbax_launches = phase_orbax(root, smi)
         log(f"[16] phase 16 wall {time.perf_counter() - t0:.1f} s")
         driver_launches = phase_drivers(root, smi)
+        lstm_model_launches = phase_lstm_model(root, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(TRACE_DIR, ignore_errors=True)
@@ -3518,8 +3604,8 @@ def main() -> None:
         raise AssertionError(f"the port imported {loaded}")
     if jax_package_files() != jax_files:
         raise AssertionError("the run wrote into the JAX package's directory")
-    log("[17] no module of jax, flax, msgpack or the JAX package loaded; nothing "
-        "written into the JAX package's directory (phases 1-17)")
+    log("[18] no module of jax, flax, msgpack or the JAX package loaded; nothing "
+        "written into the JAX package's directory (phases 1-18)")
     # The line's times are at student_L1 (T=6, B=1280, H=1024), the
     # student's first layer at batch 256. "ms" and "plain_ms" are eager
     # calls, "graph_ms" the kernel's graph replay. library_ms is cuDNN's
@@ -3557,6 +3643,9 @@ def main() -> None:
             # a 300-video request to each Predictor over 13a's bundle
             kernels[-1]["interop_predict_launches"] = interop["launches"][
                 "student none" if name == "lstm_chunk_scan" else "student int8"]
+        if name == "lstm_chunk_scan":
+            # phase 18: the LSTM baseline's binaries, calls a batch
+            kernels[-1]["lstm_model_launches"] = lstm_model_launches
         # phase 15's paths: a rank's launches, each path counted alone
         kernels[-1]["mesh_launches"] = {path: counts[name] for path, counts
                                         in mesh_launches.items() if counts[name]}

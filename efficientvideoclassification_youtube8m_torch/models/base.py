@@ -29,10 +29,15 @@ from efficientvideoclassification_youtube8m_torch.ops.collectives import (
 MODEL_REGISTRY: Dict[str, Any] = {}
 
 
-def register_model(name: str) -> Callable:
+def register_model(name: str, frame_level: bool = False) -> Callable:
+    """Register a model class under the flag string `name`. A
+    `frame_level` model takes [B, T, D] frames and `num_frames`; the
+    others take [B, D] video-level features. Both become attributes of
+    the class (`name`, `frame_level`)."""
     def deco(cls):
         MODEL_REGISTRY[name] = cls
         cls.name = name
+        cls.frame_level = frame_level
         return cls
 
     return deco

@@ -1,8 +1,9 @@
 """Frame-level models (port of the JAX package's models/frame_level.py):
 the flagship `HierarchicalLstmModel`, `FrameLevelLogisticModel`,
 `DbofModel` (with batch norm), `NetVLADModel` and `NeXtVLADModel`, and
-the frame samplers and pooling they use; and `NeXtVLADGatedModel`, the
-published NeXtVLAD, which the port has and the JAX package does not.
+the frame samplers and pooling they use; and two the port has and the
+JAX package does not: `LstmModel`, the YouTube-8M starter's flat LSTM
+baseline, and `NeXtVLADGatedModel`, the published NeXtVLAD.
 Each takes [B, T, D] frames and `num_frames` [B], and swallows the
 keywords it does not read (the LSTM kernel switches among them).
 
@@ -69,7 +70,7 @@ def lstm_scan_fn(use_kernel: bool = False, use_kernel_train: bool = False,
     return functools.partial(multi_lstm_scan, compute_dtype=compute_dtype)
 
 
-@register_model("HierarchicalLstmModel")
+@register_model("HierarchicalLstmModel", frame_level=True)
 class HierarchicalLstmModel(nn.Module):
     """Two-level hierarchical LSTM + a video-level classifier.
 
@@ -146,7 +147,63 @@ class HierarchicalLstmModel(nn.Module):
         return result
 
 
-@register_model("FrameLevelLogisticModel")
+@register_model("LstmModel", frame_level=True)
+class LstmModel(nn.Module):
+    """The YouTube-8M starter code's frame-level LSTM baseline (Abu-El-Haija
+    et al., arXiv:1609.08675; google/youtube-8m `frame_level_models.py`
+    `LstmModel`): a `MultiRNNCell` of `lstm_layers` TF1
+    `BasicLSTMCell(lstm_cells, forget_bias=1.0)` run by `dynamic_rnn` over
+    every frame with `sequence_length=num_frames` (the state frozen past
+    it), its final state into the video-level classifier. The state is the
+    TF1.x starter's `state_is_tuple=False` layout, [c0, h0, c1, h1, ...]
+    (layers x 2 x cells wide), which `HierarchicalLstmModel` inherits; later
+    starter versions feed the top layer's h alone.
+
+    One scan over the whole clip, no chunks: T dependent steps a layer.
+    Returns {"state", "predictions", "regularization_loss"} like
+    `HierarchicalLstmModel`, whose keywords it takes; it swallows
+    `num_chunks`. Parameters: ``rnn.<layer>.{kernel,bias}``,
+    ``classifier...``. Spans: `lstm.scan` around the stack (each layer's
+    projection and scan), `lstm.head` around the classifier; on the
+    forward-only kernel route the scan's wrapper counts its steps
+    (`lstm.step_launches`, T a layer)."""
+
+    def __init__(self, input_size: int, vocab_size: int,
+                 lstm_cells: int = 1024, lstm_layers: int = 2,
+                 classifier: str = "MoeModel",
+                 classifier_kwargs: Optional[dict] = None,
+                 key: Optional[prng.Key] = None, device=None, **_):
+        super().__init__()
+        k1, k2 = prng.split(key or prng.prng_key(0))
+        self.rnn = init_multi_lstm(k1, input_size, lstm_cells, lstm_layers, device)
+        self.classifier = get_model(classifier)(
+            lstm_layers * 2 * lstm_cells, vocab_size, key=k2, device=device,
+            **(classifier_kwargs or {}))
+
+    def forward(self, model_input: torch.Tensor,  # [B, T, D]
+                num_frames: torch.Tensor,  # [B]
+                num_chunks: Optional[int] = None,
+                classifier: Optional[str] = None,
+                compute_dtype: torch.dtype = torch.float32,
+                use_kernel: bool = False,
+                use_kernel_train: bool = False,
+                **classifier_kwargs) -> Dict[str, Any]:
+        """The scans of `HierarchicalLstmModel.forward` (`lstm_scan_fn`):
+        the train kernels (`use_kernel_train`), the forward-only bf16
+        kernel (`use_kernel`), or the plain scan in `compute_dtype`. The
+        other keywords go to the head."""
+        _check_classifier(self, classifier)
+        scan_fn = lstm_scan_fn(use_kernel, use_kernel_train, compute_dtype)
+        with profiling.annotate("lstm.scan"):
+            state = scan_fn(self.rnn, model_input, num_frames.to(torch.int32))
+        with profiling.annotate("lstm.head"):
+            result = self.classifier(state, compute_dtype=compute_dtype,
+                                     **classifier_kwargs)
+        result["state"] = state
+        return result
+
+
+@register_model("FrameLevelLogisticModel", frame_level=True)
 class FrameLevelLogisticModel(nn.Module):
     """Mean-pool over the true frames -> sigmoid FC
     (frame_level_models.py:50-83); column-parallel under tensor
@@ -266,7 +323,7 @@ def _bn_apply(p: Params, x: torch.Tensor, is_training: bool,
     return (x - mean) * inv * p.scale + p.offset, new
 
 
-@register_model("DbofModel")
+@register_model("DbofModel", frame_level=True)
 class DbofModel(nn.Module):
     """Deep Bag-of-Frames (frame_level_models.py:85-195): sample frames,
     BN -> cluster FC -> relu6 -> frame pooling -> hidden FC -> BN ->
@@ -375,7 +432,7 @@ def _vlad_tail(model: nn.Module, vlad: torch.Tensor, classifier_kwargs,
     return result
 
 
-@register_model("NetVLADModel")
+@register_model("NetVLADModel", frame_level=True)
 class NetVLADModel(nn.Module):
     """NetVLAD aggregation (the reference stubs it,
     frame_level_models.py:341-347): soft-assign each true frame to K
@@ -413,7 +470,7 @@ class NetVLADModel(nn.Module):
                           (self.assign.w, self.hidden.w), l2_penalty)
 
 
-@register_model("NeXtVLADModel")
+@register_model("NeXtVLADModel", frame_level=True)
 class NeXtVLADModel(nn.Module):
     """NeXtVLAD (Lin et al. 2018), a grouped, attention-gated NetVLAD
     (the reference stubs it, frame_level_models.py:349-355): expand D to
@@ -524,7 +581,7 @@ class _NeXtVLADBranch(nn.Module):
         return norm(f"{name}.vlad_bn", _l2_rows(vlad, 1).reshape(B, -1))
 
 
-@register_model("NeXtVLADGatedModel")
+@register_model("NeXtVLADGatedModel", frame_level=True)
 class NeXtVLADGatedModel(nn.Module):
     """The published NeXtVLAD (Lin, Xiao & Fan, ECCV 2018 Workshops,
     arXiv:1811.05014; the authors' `NeXtVLADModel`): one `_NeXtVLADBranch`

@@ -40,6 +40,7 @@ from efficientvideoclassification_youtube8m_torch import losses as losses_lib
 from efficientvideoclassification_youtube8m_torch.metrics.eval_util import (
     topk_and_perr_on_device,
 )
+from efficientvideoclassification_youtube8m_torch.models import get_model
 from efficientvideoclassification_youtube8m_torch.ops import prng
 from efficientvideoclassification_youtube8m_torch.ops.preprocess import (
     dequantize,
@@ -196,20 +197,13 @@ def forward_student(cfg: TrainConfig, model, model_input_student: torch.Tensor,
     )
 
 
-# the models whose forward takes [B, T, D] frames (models/frame_level.py)
-FRAME_LEVEL_MODELS = frozenset({
-    "HierarchicalLstmModel", "FrameLevelLogisticModel", "DbofModel",
-    "NetVLADModel", "NeXtVLADModel", "NeXtVLADGatedModel",
-})
-
-
 def forward_video_level(cfg: TrainConfig, model, model_input: torch.Tensor,
                         labels=None, inference: bool = False,
                         dropout_keep_prob=1.0, rng: Optional[prng.Key] = None):
     """The `--frame_features=False` forward: the flag-selected video-level
     model applied straight to the [B, D] aggregated features
     (train_finetune.py:514-518, readers.py:53-112)."""
-    if cfg.model in FRAME_LEVEL_MODELS:
+    if get_model(cfg.model).frame_level:
         raise ValueError(
             f"--frame_features=False feeds [batch, {model_input.shape[-1]}] "
             f"aggregated features, but --model={cfg.model} is a frame-level "

@@ -55,6 +55,10 @@ prefetch and the fetch):
                       blocks are sent as they are and not counted
   step.eval           the eval, validate and int8 eval steps' host
                       dispatch (not their device time)
+  lstm.scan           `LstmModel`'s LSTM stack, inside its step
+  lstm.head           `LstmModel`'s classifier, inside its step
+  lstm.step_launches  (counter) step kernels `lstm_chunk_scan` launched,
+                      T a call
   fetch.enqueue       `HostFetch` queueing a step's device->host copy
   fetch.wait          `HostFetch.get()` waiting for that copy
   eval.accumulate     a fetch's rows unpacked (`eval.unpack`), scored

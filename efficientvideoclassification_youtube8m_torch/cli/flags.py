@@ -52,7 +52,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--learning_rate_decay", type=float, default=0.95)
     p.add_argument("--learning_rate_decay_examples", type=float, default=4000000)
     p.add_argument("--num_epochs", type=int, default=5)
-    p.add_argument("--num_readers", type=int, default=4)
+    p.add_argument("--num_readers", type=int, default=4,
+                   help="how many input files are read at once; in file "
+                   "order with the native parser a team of threads sized "
+                   "from the CPUs the process may use decodes their records")
     p.add_argument("--optimizer", default="AdamOptimizer")
     p.add_argument("--clip_gradient_norm", type=float, default=1.0)
     p.add_argument("--log_device_placement", type=_bool, default=False)

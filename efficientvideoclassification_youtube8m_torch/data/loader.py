@@ -12,11 +12,13 @@ producer/consumer design:
 
 In file order with the native parser (no shuffle; one reader, or several
 without `deterministic`) the port takes a shorter route with no Python a
-video: native reader threads (`native.FrameBatcher`) parse each video
-straight into its row of a batch block that the consumer handed in ahead
-(`_IN_FLIGHT` of them), and the consumer takes the blocks back filled, in
-order. Training's shuffle buffer, deterministic input with several
-readers and the pure-Python parser keep the route above.
+video: `num_readers` record streams feed a team of native threads sized
+from the process's CPUs (`native.FrameBatcher`), which read each video's
+record and decode it straight into its row of a batch block that the
+consumer handed in ahead (`_IN_FLIGHT` of them), and the consumer takes
+the blocks back filled, in order. Training's shuffle buffer,
+deterministic input with several readers and the pure-Python parser keep
+the route above.
 
 Batches carry RAW uint8 features — dequantize/l2-normalize run on the
 device inside the step — so host->device traffic is 1/4 of the f32
@@ -385,12 +387,13 @@ class FrameDataLoader:
                 and (not self.deterministic or self.num_readers == 1))
 
     def _batches_in_place(self) -> Iterator[FrameBatch]:
-        """Batches that `native.FrameBatcher`'s threads parse straight into
+        """Batches that `native.FrameBatcher`'s team decodes straight into
         blocks from `_array` (pinned with a CUDA device, so `device_prefetch`
-        sends them as they are), `_IN_FLIGHT` blocks handed in ahead. The
-        stream is `_file_stream`'s, unshuffled; a final short batch is
-        padded, dropped or cut as on the per-video route. The threads are
-        joined before any block the generator holds is let go."""
+        sends them as they are), `_IN_FLIGHT` blocks handed in ahead, from
+        `num_readers` record streams. The files are `_file_stream`'s,
+        unshuffled; a final short batch is padded, dropped or cut as on the
+        per-video route. The threads are joined before any block the
+        generator holds is let go."""
         B = self.batch_size
         off_at = time.time_ns()
         batcher = self._native.FrameBatcher(
@@ -415,7 +418,7 @@ class FrameDataLoader:
             while True:
                 with profiling.annotate("loader.queue_wait"):
                     n = batcher.next()
-                off_at = _move_parse_spans(batcher, off_at)
+                off_at = _move_team_spans(batcher, off_at)
                 if n == 0 or (n < B and self.drop_remainder):
                     return
                 with profiling.annotate("loader.assemble"):
@@ -567,18 +570,25 @@ class AggregatedBatch:
         return np.ones((self.features.shape[0],), np.int32)
 
 
-def _move_parse_spans(batcher, off_at: int) -> int:
-    """Move the batcher's logged parse stretches into the program's spans as
-    `loader.parse` records of its reader threads while a profiler runs, and
-    drop them otherwise. `off_at` is the last time (ns on `time.time_ns`'s
-    clock) the consumer saw no profiler running, or the batcher's start; a
-    stretch that starts before it is dropped, so the records start at most
-    a batch before the profiler did. Returns the new `off_at`."""
+def _move_team_spans(batcher, off_at: int) -> int:
+    """Move the batcher's logged stretches into the program's spans while a
+    profiler runs, as records of its team's threads: a stream held to
+    locate a record as `loader.parse`, a record's read and decode as
+    `loader.decode`; and its count of waits for a stream into the counter
+    `loader.stream_waits`. Drop them otherwise. `off_at` is the last time
+    (ns on `time.time_ns`'s clock) the consumer saw no profiler running, or
+    the batcher's start; a stretch that starts before it is dropped, so
+    the records start at most a batch before the profiler did. Returns the
+    new `off_at`."""
+    waits = batcher.stream_waits()
     if not profiling.enabled():
         batcher.drop_spans()
         return time.time_ns()
     spans = batcher.spans()
-    profiling.add_spans("loader.parse", spans[spans[:, 1] >= off_at].tolist())
+    spans = spans[spans[:, 2] >= off_at]
+    for kind, name in ((batcher.READ, "loader.parse"), (batcher.DECODE, "loader.decode")):
+        profiling.add_spans(name, spans[spans[:, 0] == kind, 1:].tolist())
+    profiling.count("loader.stream_waits", waits)
     return off_at
 
 

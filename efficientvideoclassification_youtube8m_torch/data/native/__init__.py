@@ -1,7 +1,8 @@
 """ctypes bindings for the native YT8M TFRecord/SequenceExample parser
 and the AP heap kernels (a copy of the JAX package's data/native, with
-its own build), and for the port's own batcher (`FrameBatcher`): native
-reader threads that parse a file stream straight into batch blocks.
+its own build), and for the port's own batcher (`FrameBatcher`): a team
+of native threads that reads a few record streams and decodes their
+videos straight into batch blocks.
 
 Builds the library from yt8m_io.cc and heap.cc on first use (g++ -O3; a
 few seconds) into `build/native/` at the root of the checkout, named by a
@@ -118,7 +119,8 @@ def _load():
             ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int32),
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # nfeat, max_frames, stride
             ctypes.c_int32, ctypes.c_int32,  # vocab, labels_cap
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # batch, id_cap, readers
+            ctypes.c_int32, ctypes.c_int32,  # batch, id_cap
+            ctypes.c_int32, ctypes.c_int32,  # streams, team
         ]
         lib.yt8m_batcher_add.restype = None
         lib.yt8m_batcher_add.argtypes = [ctypes.c_void_p, _u8p, _u8p,
@@ -132,6 +134,8 @@ def _load():
         lib.yt8m_batcher_spans.restype = ctypes.c_int64
         lib.yt8m_batcher_spans.argtypes = [ctypes.c_void_p,
                                            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64]
+        lib.yt8m_batcher_stream_waits.restype = ctypes.c_int64
+        lib.yt8m_batcher_stream_waits.argtypes = [ctypes.c_void_p]
         lib.yt8m_batcher_close.restype = None
         lib.yt8m_batcher_close.argtypes = [ctypes.c_void_p]
         lib.yt8m_crc32c.restype = ctypes.c_uint32
@@ -338,6 +342,13 @@ def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
+def team_size(num_readers: int) -> int:
+    """The threads of a `FrameBatcher` over `num_readers` streams: one a
+    CPU this process may run on, less one for the loop's thread, and never
+    fewer than the streams."""
+    return max(num_readers, len(os.sched_getaffinity(0)) - 1)
+
+
 _open_batchers: "weakref.WeakSet" = weakref.WeakSet()
 
 
@@ -350,19 +361,25 @@ def _close_batchers() -> None:
 
 
 class FrameBatcher:
-    """Native reader threads that parse the videos of a file stream straight
-    into the rows of batch blocks (yt8m_io.cc `yt8m_batcher_*`), with no
-    Python a video.
+    """A team of native threads that decodes the videos of `num_readers`
+    record streams straight into the rows of batch blocks (yt8m_io.cc
+    `yt8m_batcher_*`), with no Python a video.
 
-    `num_readers` threads take the files of `paths` in turn, the list
-    repeated `num_epochs` times (endless when None). A thread reads a whole
-    record, then claims the next free row of the oldest block that has
-    one, so no row is left a hole: with one reader the rows follow the
-    stream's order. Each row gets its features (strided, the padding rows
-    zeroed), a dense labels row (every class `0 <= c < vocab_size`), its
-    frame count and its id. The caller hands blocks in (`add`) and takes
+    Each stream walks one file at a time, the next of `paths` in turn, the
+    list repeated `num_epochs` times (endless when None), so the streams
+    walk at most `num_readers` files at once. The team,
+    `team_size(num_readers)` threads (`team`), does the work: a thread
+    takes a free stream, locates its next record from the record's
+    header, claims the next free row of the oldest block that has one and
+    gives the stream back; then it reads the record's bytes and decodes
+    them into the row, beside the rest of the team. No row is left a
+    hole, and with one stream the rows follow its order. Each row gets its
+    features (strided, the padding rows zeroed), a dense labels row (every
+    class `0 <= c < vocab_size`), its frame count and its id. The caller hands blocks in (`add`) and takes
     them back filled, in the same order (`next`); `close` stops and joins
     the threads, after which none writes into a block."""
+
+    READ, DECODE = 0, 1  # the kinds of `spans()`' stretches
 
     def __init__(self, paths: Sequence[str], num_epochs: Optional[int],
                  feature_names: Sequence[str], feature_sizes: Sequence[int],
@@ -372,6 +389,7 @@ class FrameBatcher:
         if self._lib is None:
             raise RuntimeError("native parser unavailable")
         self.batch_size = batch_size
+        self.team = team_size(num_readers)
         self._handle = None
         files = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
         names = (ctypes.c_char_p * len(feature_names))(*[n.encode() for n in feature_names])
@@ -379,7 +397,7 @@ class FrameBatcher:
         handle = self._lib.yt8m_batcher_open(
             files, len(paths), -1 if num_epochs is None else num_epochs, names, sizes,
             len(feature_names), max_frames, max(1, stride), vocab_size, labels_cap,
-            batch_size, ID_CAP, num_readers)
+            batch_size, ID_CAP, num_readers, self.team)
         if not handle:
             raise OSError("cannot start the native batcher's threads")
         self._handle = handle
@@ -399,7 +417,9 @@ class FrameBatcher:
     def next(self) -> int:
         """Wait for the oldest block handed in and return its rows: the
         batch, fewer only where the stream ended, 0 once it has. Raises
-        IOError with the parser's message on a parse error. The wait is
+        IOError with the parser's message on a parse error, once the rows
+        claimed before it are written (a block they fill still goes out
+        first). The wait is
         a call that lets go of the interpreter lock, cut every 100 ms so
         that a signal reaches the caller."""
         while True:
@@ -411,18 +431,26 @@ class FrameBatcher:
         return rows
 
     def spans(self) -> np.ndarray:
-        """The readers' busy stretches logged since the last call, [n, 3]
-        int64: (native thread id, start ns, end ns) on CLOCK_REALTIME
-        (`time.time_ns`'s clock). A stretch runs from reading a record to
-        the end of its row, less any wait for a block."""
-        out = np.empty((self._lib.yt8m_batcher_span_count(self._handle), 3), np.int64)
-        # the readers only add stretches, so all of the counted ones move
+        """The team's busy stretches logged since the last call, [n, 4]
+        int64: (kind, native thread id, start ns, end ns) on CLOCK_REALTIME
+        (`time.time_ns`'s clock). A `READ` stretch is a stream's read
+        of a record's header, from taking the stream to giving it back,
+        less any wait for a block (at most `num_readers` overlap); a
+        `DECODE` one is the read of the record's bytes and their decode
+        into its row, labels and id."""
+        out = np.empty((self._lib.yt8m_batcher_span_count(self._handle), 4), np.int64)
+        # the team only adds stretches, so all of the counted ones move
         self._lib.yt8m_batcher_spans(self._handle, _ptr(out, ctypes.c_int64), len(out))
         return out
 
     def drop_spans(self) -> None:
         """Forget the busy stretches logged so far."""
         self._lib.yt8m_batcher_spans(self._handle, None, 0)
+
+    def stream_waits(self) -> int:
+        """The times a thread found every stream held and waited for one,
+        since the last call."""
+        return self._lib.yt8m_batcher_stream_waits(self._handle)
 
     def close(self) -> None:
         """Stop and join the threads (idempotent)."""

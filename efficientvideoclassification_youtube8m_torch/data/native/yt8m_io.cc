@@ -15,9 +15,10 @@
 //
 // Two entry points share one decoder: the per-file reader (yt8m_open /
 // yt8m_next_batch), which fills a caller's arrays a video at a time, and
-// the batcher (yt8m_batcher_*), whose own threads parse the videos of a
-// whole file stream straight into the rows of the batch blocks the caller
-// hands in, with no Python per video.
+// the batcher (yt8m_batcher_*), whose own team of threads reads a few
+// record streams over a file list and decodes their videos straight into
+// the rows of the batch blocks the caller hands in, with no Python per
+// video.
 //
 // Wire format notes: TFRecord framing is {u64 len, u32 masked crc(len),
 // data, u32 masked crc(data)}; SequenceExample is
@@ -25,6 +26,9 @@
 // with Features/FeatureLists being map<string, Feature/FeatureList> and
 // Feature { BytesList=1 | FloatList=2 | Int64List=3 }.
 
+#include <errno.h>
+#include <fcntl.h>
+#include <sys/stat.h>
 #include <sys/syscall.h>
 #include <time.h>
 #include <unistd.h>
@@ -37,6 +41,7 @@
 #include <cstring>
 #include <deque>
 #include <exception>
+#include <memory>
 #include <mutex>
 #include <string>
 #include <thread>
@@ -176,6 +181,8 @@ struct Layout {
   size_t video_bytes() const { return size_t(out_rows) * total_size; }
 };
 
+constexpr uint64_t kMaxRecordBytes = 1ull << 30;
+
 struct Yt8mReader {
   explicit Yt8mReader(const Layout& l) : layout(l) {}
 
@@ -209,7 +216,6 @@ struct Yt8mReader {
     // killing the host process. Bound it (a YT8M SequenceExample is a
     // few hundred KB; 1 GB is generous for any TFRecord) and absorb
     // allocation failure into the normal error path.
-    constexpr uint64_t kMaxRecordBytes = 1ull << 30;
     if (len > kMaxRecordBytes)
       return fail("record length implausible (corrupt header?)"), -1;
     try {
@@ -452,7 +458,8 @@ void copy_id(const StringView& id, char* out, int32_t id_cap) {
 }
 
 // ---------------------------------------------------------------------------
-// Batcher: reader threads that parse a file stream into the caller's blocks
+// Batcher: a team of threads that reads `num_readers` record streams and
+// decodes their records into the caller's blocks
 // ---------------------------------------------------------------------------
 
 // time.time_ns's clock, the one the program's spans are kept on
@@ -475,8 +482,53 @@ struct Block {
   int32_t done = 0;
 };
 
-// A reader's busy stretches are kept as (thread id, start, end) triples
-// on CLOCK_REALTIME, up to this many a drain.
+// An open file of the list, shared by its stream and by the team threads
+// still reading records of it: closed when the last lets go.
+struct File {
+  int fd = -1;
+  int64_t index = 0;  // the cursor's index of it
+  int64_t size = 0;
+  ~File() {
+    if (fd >= 0) close(fd);
+  }
+};
+
+// One record stream: a file at a time from the batcher's cursor, whose
+// records whichever team thread holds it locates in order, from their
+// headers.
+struct Stream {
+  std::shared_ptr<File> file;
+  int64_t offset = 0;    // of the next record's header
+  bool held = false;
+  bool retired = false;  // the cursor had no file left for it
+};
+
+// A record a stream located: its file, and where its bytes lie in it.
+struct Record {
+  std::shared_ptr<File> file;
+  int64_t offset = 0;
+  uint64_t len = 0;
+};
+
+// Reads `n` bytes of `fd` at `offset`; false if the file ends first or
+// the read fails.
+bool pread_all(int fd, uint8_t* p, size_t n, int64_t offset) {
+  while (n > 0) {
+    const ssize_t got = pread(fd, p, n, offset);
+    if (got < 0 && errno == EINTR) continue;
+    if (got <= 0) return false;
+    p += got;
+    n -= size_t(got);
+    offset += got;
+  }
+  return true;
+}
+
+// The team's logged stretches are kept as (kind, thread id, start, end)
+// on CLOCK_REALTIME, up to this many a drain: a stream held to locate a
+// record (from taking the stream to giving it back, less any wait for a
+// block), and a record's read and decode into its row.
+constexpr int64_t kSpanRead = 0, kSpanDecode = 1;
 constexpr size_t kMaxSpans = size_t(1) << 18;
 
 struct Batcher {
@@ -488,13 +540,18 @@ struct Batcher {
   int32_t batch = 0, vocab = 0, labels_cap = 0, id_cap = 0;
 
   std::mutex mu;  // guards everything below
-  std::condition_variable rows_free;   // a block with an unclaimed row
-  std::condition_variable block_done;  // the oldest block can go out
+  std::condition_variable rows_free;    // a block with an unclaimed row
+  std::condition_variable block_done;   // the oldest block can go out
+  std::condition_variable stream_free;  // a stream given back or retired
   int64_t next_file = 0;
-  std::deque<Block> blocks;  // handed in and not yet handed out, oldest first
-  int32_t live = 0;          // reader threads still running
+  std::vector<Stream> streams;
+  int32_t retired = 0;        // streams retired
+  std::deque<Block> blocks;   // handed in and not yet handed out, oldest first
+  int32_t live = 0;           // team threads still running
+  int32_t decoding = 0;       // rows claimed and neither written nor abandoned
+  int64_t stream_waits = 0;   // times a thread found every stream held
   bool stop = false;
-  std::string error;         // the first error, as the consumer raises it
+  std::string error;          // the first error, as the consumer raises it
   std::vector<int64_t> spans;
   std::vector<std::thread> threads;
 
@@ -505,26 +562,111 @@ struct Batcher {
     return b.done == batch || (live == 0 && error.empty() && b.done == b.claimed);
   }
 
+  // What the consumer waits for: the oldest block, or an error once no
+  // row claimed before it is still being written (so the rows read
+  // before a failed one still go out).
+  bool settled() const {
+    return front_ready() || (!error.empty() && decoding == 0);
+  }
+
   void fail(const std::string& msg) {
     std::lock_guard<std::mutex> lk(mu);
     if (error.empty()) error = msg;
     rows_free.notify_all();
     block_done.notify_all();
+    stream_free.notify_all();
   }
 
-  // The next file of the stream, or false once it has ended or failed.
-  bool take_file(std::string* path) {
+  // The next file of the cursor, or false once it has ended or failed.
+  bool take_file(int64_t* file) {
     std::lock_guard<std::mutex> lk(mu);
     if (stop || !error.empty()) return false;
     if (files_total >= 0 && next_file >= files_total) return false;
-    *path = files[size_t(next_file++ % int64_t(files.size()))];
+    *file = next_file++;
     return true;
   }
 
+  const std::string& path(int64_t index) const {
+    return files[size_t(index % int64_t(files.size()))];
+  }
+
+  // Takes a free stream at `*t0`, waiting while every one is held;
+  // nullptr once all have retired, or on stop or error.
+  Stream* take_stream(int64_t* t0) {
+    std::unique_lock<std::mutex> lk(mu);
+    bool waited = false;
+    for (;;) {
+      if (stop || !error.empty() || retired == int32_t(streams.size())) return nullptr;
+      for (Stream& s : streams) {
+        if (!s.held && !s.retired) {
+          s.held = true;
+          *t0 = realtime_ns();  // under the lock: a stream's holds never overlap
+          return &s;
+        }
+      }
+      if (!waited) stream_waits++;
+      waited = true;
+      stream_free.wait(lk);
+    }
+  }
+
+  void retire(Stream* s) {
+    std::lock_guard<std::mutex> lk(mu);
+    s->held = false;
+    s->retired = true;
+    retired++;
+    stream_free.notify_all();
+  }
+
+  // Locates the held stream's next record from its header, as the per-file
+  // reader frames it, moving on to the cursor's next file where one ends.
+  // 1 = a record, 0 = the cursor has no file left, -1 = failed (the error
+  // set).
+  int next_record(Stream* s, Record* rec) {
+    for (;;) {
+      if (!s->file) {
+        auto file = std::make_shared<File>();
+        if (!take_file(&file->index)) return 0;
+        file->fd = open(path(file->index).c_str(), O_RDONLY | O_CLOEXEC);
+        struct stat st;
+        if (file->fd < 0 || fstat(file->fd, &st) != 0)
+          return fail("cannot open " + path(file->index)), -1;
+        file->size = st.st_size;
+        s->file = std::move(file);
+        s->offset = 0;
+      }
+      const int64_t left = s->file->size - s->offset;
+      if (left == 0) {
+        s->file.reset();
+        continue;
+      }
+      uint8_t header[12];
+      uint64_t len = 0;
+      const char* err = nullptr;
+      if (left < 12) {
+        err = "truncated header";
+      } else if (!pread_all(s->file->fd, header, 12, s->offset)) {
+        err = "read error";
+      } else {
+        memcpy(&len, header, 8);
+        if (len > kMaxRecordBytes) err = "record length implausible (corrupt header?)";
+        else if (uint64_t(left - 12) < len) err = "truncated record";
+        else if (uint64_t(left - 12) - len < 4) err = "truncated footer";
+      }
+      if (err) return fail("parse error in " + path(s->file->index) + ": " + err), -1;
+      rec->file = s->file;
+      rec->offset = s->offset + 12;
+      rec->len = len;
+      s->offset += 12 + int64_t(len) + 4;
+      return 1;
+    }
+  }
+
   // Claims the next row of the oldest block with one free, waiting for
-  // the caller to hand a block in; false on stop or error. `waited` says
-  // whether it had to wait.
-  bool claim(Block** block, int32_t* row, bool* waited) {
+  // the caller to hand a block in, and gives the stream back at `*t3`.
+  // Claimed while the stream is held, one stream's rows keep its order.
+  // False on stop or error; `waited` says whether it waited for a block.
+  bool claim(Stream* s, Block** block, int32_t* row, bool* waited, int64_t* t3) {
     std::unique_lock<std::mutex> lk(mu);
     *waited = false;
     for (;;) {
@@ -533,6 +675,10 @@ struct Batcher {
         if (b.claimed < batch) {
           *block = &b;
           *row = b.claimed++;
+          decoding++;
+          s->held = false;
+          *t3 = realtime_ns();
+          stream_free.notify_one();
           return true;
         }
       }
@@ -541,72 +687,85 @@ struct Batcher {
     }
   }
 
-  void finish_row(Block* block, int64_t tid, int64_t t0, int64_t t1,
-                  int64_t t2, int64_t t3) {
+  // Counts the row written, and logs the stream's read [t0, read_end] and
+  // the record's decode from `decode_start` to now.
+  void finish_row(Block* block, int64_t tid, int64_t t0, int64_t read_end,
+                  int64_t decode_start) {
     std::lock_guard<std::mutex> lk(mu);
-    if (spans.size() + 6 <= 3 * kMaxSpans) {
-      if (t2 > t1) {  // waited for a block: two busy stretches
-        spans.insert(spans.end(), {tid, t0, t1, tid, t2, t3});
-      } else {
-        spans.insert(spans.end(), {tid, t0, t3});
-      }
-    }
+    if (spans.size() + 8 <= 4 * kMaxSpans)
+      spans.insert(spans.end(), {kSpanRead, tid, t0, read_end,
+                                 kSpanDecode, tid, decode_start, realtime_ns()});
     block->done++;
-    if (block == &blocks.front() && block->done == batch) block_done.notify_one();
+    decoding--;
+    if ((block == &blocks.front() && block->done == batch) ||
+        (!error.empty() && decoding == 0))
+      block_done.notify_one();
   }
 
-  void read_file(const std::string& path, Yt8mReader* r,
-                 std::vector<int64_t>* labels, int64_t tid) {
-    r->f = fopen(path.c_str(), "rb");
-    if (!r->f) return fail("cannot open " + path);
-    setvbuf(r->f, nullptr, _IOFBF, 1 << 20);
-    const size_t row_bytes = layout.video_bytes();
-    for (;;) {
-      const int64_t t0 = realtime_ns();
-      const int rc = r->next_record();
-      if (rc == 0) break;
-      if (rc < 0) return fail("parse error in " + path + ": " + r->error);
-      const int64_t t1 = realtime_ns();
-      Block* b;
-      int32_t row;
-      bool waited;
-      if (!claim(&b, &row, &waited)) return;
-      const int64_t t2 = waited ? realtime_ns() : t1;
-      labels->clear();
-      StringView id;
-      const char* err = decode_video(layout, r->record, b->features + row * row_bytes,
-                                     b->num_frames + row, labels, &id);
-      if (err) return fail("parse error in " + path + ": " + err);
-      if (labels->size() > size_t(labels_cap)) {
-        return fail("record in " + path + " has " + std::to_string(labels->size()) +
-                    " labels > labels_cap " + std::to_string(labels_cap) +
-                    "; pass a larger labels_cap (the loader sizes it to the vocabulary)");
-      }
-      uint8_t* dense = b->labels + size_t(row) * vocab;
-      memset(dense, 0, vocab);
-      for (int64_t c : *labels)
-        if (0 <= c && c < vocab) dense[c] = 1;
-      copy_id(id, b->ids + size_t(row) * id_cap, id_cap);
-      finish_row(b, tid, t0, t1, t2, realtime_ns());
-    }
-  }
-
-  void run_reader() {
-    const int64_t tid = int64_t(syscall(SYS_gettid));
-    Yt8mReader r(layout);
-    std::vector<int64_t> labels;
-    std::string path;
+  // One round of a team thread: take a stream, locate its next record,
+  // claim a row and give the stream back; then, outside every lock, read
+  // the record's bytes and decode them into the row. False once the
+  // thread is done: every stream retired, stop, or an error. `in_row`: a
+  // row claimed and not written.
+  bool round(int64_t tid, Record* rec, std::vector<uint8_t>* record,
+             std::vector<int64_t>* labels, bool* in_row) {
+    int64_t t0, t1, t3;  // stream taken, record located, stream given back
+    Stream* s = take_stream(&t0);
+    if (!s) return false;
+    const int rc = next_record(s, rec);
+    if (rc == 0) retire(s);
+    if (rc <= 0) return rc == 0;
+    t1 = realtime_ns();
+    Block* b;
+    int32_t row;
+    bool waited;
+    if (!claim(s, &b, &row, &waited, &t3)) return false;
+    *in_row = true;
+    const std::string& file = path(rec->file->index);
     try {
-      while (take_file(&path)) {
-        read_file(path, &r, &labels, tid);
-        if (r.f) fclose(r.f);
-        r.f = nullptr;
+      record->resize(rec->len);
+    } catch (const std::exception&) {
+      return fail("parse error in " + file + ": record allocation failed"), false;
+    }
+    if (!pread_all(rec->file->fd, record->data(), rec->len, rec->offset))
+      return fail("parse error in " + file + ": truncated record"), false;
+    rec->file.reset();  // the stream may have closed it meanwhile
+    labels->clear();
+    StringView id;
+    const char* err = decode_video(layout, *record, b->features + row * layout.video_bytes(),
+                                   b->num_frames + row, labels, &id);
+    if (err) return fail("parse error in " + file + ": " + err), false;
+    if (labels->size() > size_t(labels_cap)) {
+      fail("record in " + file + " has " + std::to_string(labels->size()) +
+           " labels > labels_cap " + std::to_string(labels_cap) +
+           "; pass a larger labels_cap (the loader sizes it to the vocabulary)");
+      return false;
+    }
+    uint8_t* dense = b->labels + size_t(row) * vocab;
+    memset(dense, 0, vocab);
+    for (int64_t c : *labels)
+      if (0 <= c && c < vocab) dense[c] = 1;
+    copy_id(id, b->ids + size_t(row) * id_cap, id_cap);
+    // a wait for a block, the stream still held, is no part of the read
+    finish_row(b, tid, t0, waited ? t1 : t3, t3);
+    *in_row = false;
+    return true;
+  }
+
+  void run_member() {
+    const int64_t tid = int64_t(syscall(SYS_gettid));
+    Record rec;
+    std::vector<uint8_t> record;
+    std::vector<int64_t> labels;
+    bool in_row = false;
+    try {
+      while (round(tid, &rec, &record, &labels, &in_row)) {
       }
     } catch (const std::exception&) {  // allocation: never unwind past here
-      if (r.f) fclose(r.f);
       fail("reader thread failed (allocation)");
     }
     std::lock_guard<std::mutex> lk(mu);
+    if (in_row) decoding--;
     live--;
     block_done.notify_one();
   }
@@ -615,6 +774,8 @@ struct Batcher {
 }  // namespace
 
 extern "C" {
+
+void yt8m_batcher_close(Batcher* b);
 
 Yt8mReader* yt8m_open(const char* path, const char* const* names,
                       const int32_t* sizes, int32_t nfeat, int32_t max_frames,
@@ -687,16 +848,20 @@ int32_t yt8m_next_batch(Yt8mReader* r, int32_t n, uint8_t* feat_out,
   return count;
 }
 
-// Starts `num_readers` threads over the stream of `paths`, repeated
-// `num_epochs` times (endless when negative). Each thread takes the next
-// file, reads a record, claims the next row of the oldest block handed in
-// with one free, and decodes the record into it. Returns nullptr if the
-// threads cannot start.
+// Opens `num_readers` record streams over the files of `paths`, repeated
+// `num_epochs` times (endless when negative), and starts a team of `team`
+// threads (at least one). A thread takes a free stream, locates its next
+// record from its header (the stream moving on to the next file of the
+// list where one ends), claims the next row of the oldest block handed in
+// with one free and gives the stream back; then it reads the record's
+// bytes and decodes them into the row. Returns nullptr if the threads
+// cannot start.
 Batcher* yt8m_batcher_open(const char* const* paths, int32_t npaths,
                            int64_t num_epochs, const char* const* names,
                            const int32_t* sizes, int32_t nfeat, int32_t max_frames,
                            int32_t stride, int32_t vocab, int32_t labels_cap,
-                           int32_t batch, int32_t id_cap, int32_t num_readers) {
+                           int32_t batch, int32_t id_cap, int32_t num_readers,
+                           int32_t team) {
   auto* b = new Batcher(Layout(names, sizes, nfeat, max_frames, stride));
   for (int32_t i = 0; i < npaths; i++) b->files.emplace_back(paths[i]);
   b->files_total = num_epochs < 0 ? -1 : int64_t(npaths) * num_epochs;
@@ -704,19 +869,19 @@ Batcher* yt8m_batcher_open(const char* const* paths, int32_t npaths,
   b->vocab = vocab;
   b->labels_cap = labels_cap;
   b->id_cap = id_cap;
-  b->live = num_readers;
+  b->streams.resize(size_t(std::max(num_readers, 1)));
+  team = std::max(team, 1);
+  b->live = team;
   try {
-    for (int32_t i = 0; i < num_readers; i++)
-      b->threads.emplace_back(&Batcher::run_reader, b);
+    for (int32_t i = 0; i < team; i++)
+      b->threads.emplace_back(&Batcher::run_member, b);
   } catch (const std::exception&) {
     {
       std::lock_guard<std::mutex> lk(b->mu);
       b->stop = true;
-      b->live -= num_readers - int32_t(b->threads.size());
+      b->live -= team - int32_t(b->threads.size());
     }
-    b->rows_free.notify_all();
-    for (auto& t : b->threads) t.join();
-    delete b;
+    yt8m_batcher_close(b);
     return nullptr;
   }
   return b;
@@ -744,8 +909,7 @@ int32_t yt8m_batcher_next(Batcher* b, int32_t timeout_ms) {
     return -1;
   }
   const bool ready = b->block_done.wait_for(
-      lk, std::chrono::milliseconds(timeout_ms),
-      [b] { return b->front_ready() || !b->error.empty(); });
+      lk, std::chrono::milliseconds(timeout_ms), [b] { return b->settled(); });
   if (!ready) return -2;
   if (!b->front_ready()) return -1;
   const int32_t rows = b->blocks.front().done;
@@ -755,29 +919,39 @@ int32_t yt8m_batcher_next(Batcher* b, int32_t timeout_ms) {
 
 const char* yt8m_batcher_error(Batcher* b) { return b->error.c_str(); }
 
-// How many busy stretches the readers have logged and not yet given up.
+// How many stretches the team has logged and not yet given up.
 int64_t yt8m_batcher_span_count(Batcher* b) {
   std::lock_guard<std::mutex> lk(b->mu);
-  return int64_t(b->spans.size() / 3);
+  return int64_t(b->spans.size() / 4);
 }
 
-// Moves up to `cap` of the readers' logged busy stretches, oldest first,
-// into `out` as (thread id, start ns, end ns) on CLOCK_REALTIME, and
-// returns how many; with no `out`, drops them all.
+// Moves up to `cap` of the team's logged stretches, oldest first, into
+// `out` as (kind, thread id, start ns, end ns) on CLOCK_REALTIME, and
+// returns how many; with no `out`, drops them all. Kind 0 is a stream
+// held to locate a record, 1 a record's read and decode into its row.
 int64_t yt8m_batcher_spans(Batcher* b, int64_t* out, int64_t cap) {
   std::lock_guard<std::mutex> lk(b->mu);
   if (!out) {
     b->spans.clear();
     return 0;
   }
-  const int64_t n = std::min<int64_t>(cap, int64_t(b->spans.size() / 3));
-  std::copy(b->spans.begin(), b->spans.begin() + 3 * n, out);
-  b->spans.erase(b->spans.begin(), b->spans.begin() + 3 * n);
+  const int64_t n = std::min<int64_t>(cap, int64_t(b->spans.size() / 4));
+  std::copy(b->spans.begin(), b->spans.begin() + 4 * n, out);
+  b->spans.erase(b->spans.begin(), b->spans.begin() + 4 * n);
   return n;
 }
 
-// Stops and joins the threads, then frees the batcher: no thread writes
-// into a block after this returns.
+// The times a team thread found every stream held and waited for one,
+// since the last call.
+int64_t yt8m_batcher_stream_waits(Batcher* b) {
+  std::lock_guard<std::mutex> lk(b->mu);
+  const int64_t n = b->stream_waits;
+  b->stream_waits = 0;
+  return n;
+}
+
+// Stops and joins the threads, then frees the batcher (its files closed):
+// no thread writes into a block after this returns.
 void yt8m_batcher_close(Batcher* b) {
   if (!b) return;
   {
@@ -785,6 +959,7 @@ void yt8m_batcher_close(Batcher* b) {
     b->stop = true;
   }
   b->rows_free.notify_all();
+  b->stream_free.notify_all();
   for (auto& t : b->threads) t.join();
   delete b;
 }

@@ -19,7 +19,7 @@ those. Beside them:
     which the spans of one batch share.
   * `count(name, n=1)`: a counter, under the same switch.
   * `add_spans(name, spans)`: spans that threads running no Python (the
-    native batcher's readers) logged themselves, recorded as theirs.
+    native batcher's team) logged themselves, recorded as theirs.
   * `totals()`: for each span name its count, total seconds and self
     seconds (the duration less what its child spans cover), and the
     counters, since the last `reset()`. Each thread keeps its own, so a
@@ -42,9 +42,16 @@ prefetch and the fetch):
                       the batcher's path building the batch from its
                       block (ids, a short tail) and handing a block in
   loader.parse        a reader thread advancing its parser by one video;
-                      on the batcher's path a native reader reading a
-                      record and writing its row, less any wait for a
-                      block (logged by the reader, added by the consumer)
+                      on the batcher's path a thread of the native team
+                      holding a record stream to locate its next record,
+                      from taking the stream to giving it back, less any
+                      wait for a block (at most `num_readers` at once;
+                      logged by the thread, added by the consumer)
+  loader.decode       on the batcher's path a team thread reading a
+                      record's bytes and decoding them into its row,
+                      labels and id (added likewise)
+  loader.stream_waits (counter) on the batcher's path the times a team
+                      thread found every stream held and waited for one
   loader.videos       (counter) videos parsed (a batch at a time on the
                       batcher's path)
   loader.in_place     (counter) batches the native batcher filled

@@ -1,11 +1,15 @@
 """The loader's native batcher (`data/native.FrameBatcher`, taken by
 `FrameDataLoader` in file order with the native parser) against the
 pure-Python parser on the per-video route, which shares none of its
-decoding: the same batches to the byte at one reader, every video once an epoch at four, a corrupt record raised on the
+decoding: the same batches to the byte at one reader (one record stream),
+every video once an epoch at four, a corrupt record raised on the
 consumer with the parser's message, no reader thread left once the stream
 is dropped, and the per-video route kept where the readers' order or a
-shuffle needs it. Every batch block holds stale bytes when it is handed
-in, so a byte the batcher leaves unwritten shows."""
+shuffle needs it. The batcher's team of decoding threads is sized from the
+CPUs the process may use (`os.sched_getaffinity`, set here to fake hosts):
+teams larger than the streams keep every one of these. Every batch block
+holds stale bytes when it is handed in, so a byte the batcher leaves
+unwritten shows."""
 
 import itertools
 import os
@@ -235,3 +239,132 @@ def test_a_shuffle_or_ordered_readers_keep_the_per_video_route(pool, route):
     got, filled = _run(_loader(pool, **kw))
     assert filled == 0
     _same(want, got)
+
+
+# ------------------------------------------------ the team beside the streams
+
+
+@pytest.fixture
+def cpus(monkeypatch):
+    """`cpus(n)` makes the process look as if it may run on `n` CPUs, so
+    that a batcher's team is `max(num_readers, n - 1)` threads; it returns
+    the list that each `FrameBatcher` started records its team into."""
+    teams = []
+
+    class Recording(native.FrameBatcher):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            teams.append(self.team)
+
+    monkeypatch.setattr(native, "FrameBatcher", Recording)
+
+    def set_cpus(n):
+        monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(n)))
+        return teams
+
+    return set_cpus
+
+
+@pytest.fixture(scope="module")
+def python_rows(pool):
+    """Each video's row from the pure-Python parser, by stride and id."""
+    rows = {}
+    for stride in (1, 10):
+        loader = _loader(pool, use_native=False, num_readers=1, frame_stride=stride)
+        for b in loader:
+            for i, vid in enumerate(b.video_ids):
+                rows[stride, vid] = (b.features[i].tobytes(), b.labels[i].tobytes(),
+                                     b.num_frames[i])
+    return rows
+
+
+@pytest.mark.parametrize("streams", [1, 2, 4])
+@pytest.mark.parametrize("team", range(1, 9))
+def test_a_team_larger_than_the_streams_holds_each_video_once_an_epoch(
+        pool, stale_blocks, cpus, python_rows, team, streams):
+    """A team of 1-8 threads (never fewer than the streams) over 1, 2 or 4
+    streams: over 3 epochs each video comes 3 times, each time with its
+    own row from the pure-Python parser, to the byte."""
+    teams = cpus(team + 1)
+    got, filled = _run(_loader(pool, num_readers=streams, num_epochs=3))
+    assert teams == [max(team, streams)]
+    assert filled == len(got) == -(-3 * sum(SHARDS) // 4)
+    seen = Counter(vid for b in got for vid in b.video_ids)
+    assert seen == {vid: 3 for stride, vid in python_rows if stride == 1}
+    for b in got:
+        for i, vid in enumerate(b.video_ids):
+            assert (b.features[i].tobytes(), b.labels[i].tobytes(),
+                    b.num_frames[i]) == python_rows[1, vid]
+
+
+@pytest.mark.parametrize("tail", sorted(TAILS))
+@pytest.mark.parametrize("frame_stride", [1, 10])
+def test_one_stream_with_a_team_gives_the_per_video_batches(pool, stale_blocks, cpus,
+                                                           frame_stride, tail):
+    """One stream decoded by a team of 4 gives the pure-Python parser's
+    batches over 3 epochs to the byte: each row claimed while its record's
+    stream is held keeps the stream's order, the tail included."""
+    teams = cpus(5)
+    kw = dict(num_readers=1, num_epochs=3, frame_stride=frame_stride, **TAILS[tail])
+    want, _ = _run(_loader(pool, use_native=False, **kw))
+    got, filled = _run(_loader(pool, **kw))
+    assert teams == [4]
+    _same(want, got)
+    assert filled == len(got)
+
+
+def test_a_corrupt_record_raises_ioerror_with_a_team(pool, tmp_path, stale_blocks, cpus):
+    """A cut record read by one stream with a team of 4 raises IOError on
+    the consumer with the parser's message, after every batch the
+    pure-Python parser gives before its own error: the rows read before
+    the cut one are all written before the error goes out (5 tries, as
+    the threads' timing varies)."""
+    cut = _truncated_pool(pool, tmp_path)
+    want, _ = _until_error(_loader(cut, use_native=False, num_readers=1))
+    teams = cpus(5)
+    for _ in range(5):
+        got, err = _until_error(_loader(cut, num_readers=1))
+        assert type(err) is OSError
+        assert str(err).startswith(f"parse error in {cut / 'pool-2.tfrecord'}: truncated")
+        _same(want, got)
+    assert teams == [4] * 5
+
+
+@pytest.mark.skipif(not os.path.isdir("/proc/self/task"), reason="needs /proc")
+@pytest.mark.parametrize("kind", ["break", "islice", "close"])
+def test_no_thread_of_a_team_outlives_a_dropped_stream(pool, stale_blocks, cpus, kind):
+    """A team of 8 over 2 streams, endless: after a `break`, an `islice` or
+    a `close()` none of its threads is left."""
+    teams = cpus(9)
+    loader = _loader(pool, num_readers=2, num_epochs=None)
+    before = _tasks()
+    it = iter(loader)
+    next(it)
+    team = _tasks() - before
+    assert len(team) >= 8
+    it.close()
+    assert _gone(team)
+    before = _tasks()
+    _drop(kind, loader)
+    assert _gone(_tasks() - before)
+    assert teams == [8, 8]
+
+
+@pytest.mark.skipif(not os.path.isdir("/proc/self/task"), reason="needs /proc")
+@pytest.mark.parametrize("num_readers", [1, 2, 4])
+@pytest.mark.parametrize("n_cpus", [1, 2, 8])
+def test_the_team_is_sized_from_the_cpus_and_never_below_the_streams(
+        pool, stale_blocks, cpus, n_cpus, num_readers):
+    """On a process that may run on 1, 2 or 8 CPUs the team is one thread a
+    CPU less one for the loop's thread, and never fewer than the
+    `num_readers` streams; so many threads start."""
+    teams = cpus(n_cpus)
+    want = max(num_readers, n_cpus - 1)
+    assert native.team_size(num_readers) == want
+    loader = _loader(pool, num_readers=num_readers, num_epochs=None)
+    before = _tasks()
+    it = iter(loader)
+    next(it)
+    assert len(_tasks() - before) == want
+    it.close()
+    assert teams == [want]

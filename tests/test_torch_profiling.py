@@ -264,26 +264,33 @@ def test_loader_spans_and_counter(shards, deterministic, use_native):
     tot = profiling.totals()
     assert len(batches) == 7
     # in order, the native batcher fills the batches unless the order of
-    # several readers is kept
-    in_place = {"loader.in_place": 7} if use_native and not deterministic else {}
-    assert tot["counters"] == {"loader.videos": VIDEOS, **in_place}
+    # several readers is kept; its team counts its waits for a stream
+    in_place = use_native and not deterministic
+    counters = dict(tot["counters"])
+    waits = counters.pop("loader.stream_waits", None)
+    assert counters == {"loader.videos": VIDEOS,
+                        **({"loader.in_place": 7} if in_place else {})}
+    assert (waits is not None) == in_place and (waits or 0) >= 0
     spans = tot["spans"]
     assert spans["loader.assemble"]["count"] == 7
     assert spans["loader.parse"]["count"] >= VIDEOS
     assert spans["loader.queue_wait"]["count"] == 7  # one fill a batch
+    assert spans.get("loader.decode", {"count": 0})["count"] == (VIDEOS if in_place else 0)
     tids = {}
     for name, tid, *_ in profiling.records():
         tids.setdefault(name, set()).add(tid)
     assert tids["loader.queue_wait"] == tids["loader.assemble"] == {main}
-    assert main not in tids["loader.parse"] and 1 <= len(tids["loader.parse"]) <= 2
+    # the per-video route's two readers, or the batcher's team
+    threads = native.team_size(2) if in_place else 2
+    assert main not in tids["loader.parse"] and 1 <= len(tids["loader.parse"]) <= threads
 
 
 def test_the_batchers_parse_spans_are_its_readers_inside_the_trace(shards, tmp_path):
     """Under `trace`, an endless in-order stream filled by the native
-    batcher: its `loader.parse` records are those of its reader threads
+    batcher: its `loader.parse` records are those of its team's threads
     (threads that run no Python), each inside the traced stretch, their
     totals what the records add up to, and `portbench/spans.busy_share`
-    reads a share of the readers' time from them."""
+    reads a share of the streams' time from them."""
     from portbench import spans as bench_spans
 
     if not native.available():
@@ -302,7 +309,7 @@ def test_the_batchers_parse_spans_are_its_readers_inside_the_trace(shards, tmp_p
     python_threads = {th.native_id for th in threading.enumerate()}
     recs = [r for r in profiling.records() if r[0] == "loader.parse"]
     tids = {r[1] for r in recs}
-    assert len(recs) >= 30 * 8 and len(tids) == 2
+    assert len(recs) >= 30 * 8 and 1 <= len(tids) <= native.team_size(2)
     assert not tids & python_threads
     assert all(start <= r[2] < r[3] <= end and r[4:] == (None, None) for r in recs)
     parse = t.totals["spans"]["loader.parse"]
@@ -317,6 +324,43 @@ def test_the_batchers_parse_spans_are_its_readers_inside_the_trace(shards, tmp_p
     assert 0 < share < 100
 
 
+@pytest.mark.parametrize("streams", [1, 2])
+def test_the_batchers_reads_and_decodes_under_a_trace(shards, tmp_path, monkeypatch, streams):
+    """Under `trace`, an endless in-order stream over 1 or 2 record streams
+    decoded by a team of 7 (a process that may run on 8 CPUs): the
+    `loader.parse` records, a stream held, never overlap more than
+    `num_readers` deep; the `loader.decode` records are the team's threads
+    (which run no Python), at least one a video of the batches taken, each
+    inside the traced stretch; and `loader.stream_waits` counts the
+    threads' waits for a stream."""
+    if not native.available():
+        pytest.skip("the native parser did not build here")
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(8)))
+    loader = FrameDataLoader(
+        str(shards / "eval-*.tfrecord"), batch_size=8, feature_sizes=SIZES["feature_sizes"],
+        max_frames=SIZES["max_frames"], vocab_size=SIZES["vocab_size"],
+        num_readers=streams, num_epochs=None, shuffle=False)
+    with profiling.trace(str(tmp_path / "trace"), device="cpu") as t:
+        start = time.time_ns()
+        for _ in itertools.islice(loader, 60):
+            with profiling.annotate("eval.accumulate"):
+                pass
+        end = time.time_ns()
+    recs = profiling.records()
+    # a read's end sorts before another's start at the same ns
+    edges = sorted([(r[2], 1) for r in recs if r[0] == "loader.parse"]
+                   + [(r[3], -1) for r in recs if r[0] == "loader.parse"])
+    depths = list(itertools.accumulate(d for _, d in edges))
+    assert len(edges) >= 2 * 60 * 8 and max(depths) <= streams and min(depths) >= 0
+    decodes = [r for r in recs if r[0] == "loader.decode"]
+    tids = {r[1] for r in decodes}
+    assert len(decodes) >= 60 * 8 and 1 <= len(tids) <= 7
+    assert not tids & {th.native_id for th in threading.enumerate()}
+    assert all(start <= r[2] < r[3] <= end and r[4:] == (None, None) for r in decodes)
+    assert t.totals["spans"]["loader.decode"]["count"] == len(decodes)
+    assert t.totals["counters"]["loader.stream_waits"] > 0
+
+
 # ------------------------------------------------ run_eval_epoch's spans
 
 TINY_FLAGS = [
@@ -327,9 +371,9 @@ TINY_FLAGS = [
     "--num_readers", "2", "--top_k", "5", "--scan_unroll", "1",
     "--device", "cpu", "--run_once", "true", "--compute_dtype", "float32",
 ]
-LOOP_SPANS = {"loader.queue_wait", "loader.assemble", "loader.parse", "prefetch.h2d",
-              "step.eval", "fetch.enqueue", "fetch.wait", "eval.accumulate",
-              "eval.unpack", "metrics.accumulate_topk", "eval.summary"}
+LOOP_SPANS = {"loader.queue_wait", "loader.assemble", "loader.parse", "loader.decode",
+              "prefetch.h2d", "step.eval", "fetch.enqueue", "fetch.wait",
+              "eval.accumulate", "eval.unpack", "metrics.accumulate_topk", "eval.summary"}
 
 
 @pytest.fixture(scope="module")
@@ -354,7 +398,9 @@ def test_run_eval_epoch_spans_at_k(shards, train_dir, tmp_path, k):
     assert result is not None
     spans, counters = t.totals["spans"], t.totals["counters"]
     assert set(spans) == LOOP_SPANS
-    # cli.eval reads in order: the native batcher fills the batches
+    # cli.eval reads in order: the native batcher fills the batches, its
+    # team counting its waits for a stream
+    assert counters.pop("loader.stream_waits") >= 0
     assert counters == {"loader.videos": VIDEOS, "eval.batches": 7, "loader.in_place": 7}
     assert spans["metrics.accumulate_topk"]["count"] == spans["eval.summary"]["count"] == 7
     groups = math.ceil(7 / k)  # one fetch a group of k batches

@@ -166,7 +166,12 @@ kernel's device time alone, the replay of a CUDA graph of one call
      full-frame videos (300 frames, every_n 1), each with the scan's
      launch count set to 0 just before it and checked just after (2, 4
      and 2 calls a batch), cli.eval's epoch traced for its 600 kernel
-     steps a batch. Last, no module of jax, flax, msgpack or the JAX
+     steps a batch;
+ 19. Gated NetVLAD (`--model GatedNetVLADModel`, 333.2 M parameters at
+     the constructor's published widths) through cli.eval, cli.validate
+     and cli.infer at batch 256 over two batches of full-frame videos,
+     each traced: its four `gnetvlad.*` spans once a forward, inside
+     `step.eval`. Last, no module of jax, flax, msgpack or the JAX
      package is loaded and nothing was written into the JAX package's
      directory.
 
@@ -3555,6 +3560,76 @@ def phase_lstm_model(root: str, smi: str) -> dict:
     return per_batch
 
 
+GNETVLAD_BATCHES = 2
+GNETVLAD_SPANS = ("gnetvlad.video", "gnetvlad.audio", "gnetvlad.hidden", "gnetvlad.head")
+
+
+def phase_gnetvlad_model(root: str, smi: str) -> None:
+    """19: `--model GatedNetVLADModel` at its published widths (the
+    constructor's defaults: 256 clusters, hidden 1024, both gates; MoE of
+    2 over 4716) through cli.eval, cli.validate and cli.infer at batch
+    256 over two batches of full-frame videos, each traced: one span of
+    each of the four `gnetvlad.*` a forward, inside `step.eval` on its
+    thread (cli.validate runs both towers)."""
+    data_dir = os.path.join(root, "gnetvlad_model")
+    os.makedirs(data_dir)
+    B = 256
+    for s in range(GNETVLAD_BATCHES):
+        port_data.write_synthetic_frame_shard(
+            os.path.join(data_dir, f"eval-{s:04d}.tfrecord"), num_videos=B, seed=190 + s)
+    pattern = os.path.join(data_dir, "eval-*.tfrecord")
+    train_dir = os.path.join(root, "gnetvlad_model_train")
+    argv = ["--model", "GatedNetVLADModel", "--num_classes", "4716",
+            "--moe_num_mixtures", "2", "--batch_size", str(B), "--max_num_frames", "300",
+            "--every_n", "1", "--num_readers", "4", "--device", "cuda", "--run_once", "true",
+            "--compute_dtype", "bfloat16", "--top_k", "20", "--train_dir", train_dir]
+    cfg = flags.config_from_args(flags.base_parser("").parse_args(argv))
+    device = torch.device("cuda", 0)
+    state = DistillState(teacher=init_model(cfg, device=device),
+                         student=init_model(cfg, device=device), opt_teacher={},
+                         opt_student={}, global_step=1, dropout_keep_prob=1.0)
+    params = sum(p.numel() for p in state.student.parameters())
+    if params != 333_244_440:
+        raise AssertionError(f"19 GatedNetVLADModel holds {params} parameters")
+    checkpoint.save_checkpoint(train_dir, state, 1)
+    del state
+    for binary, forwards in (("eval", 1), ("validate", 2), ("infer", 1)):
+        t0 = time.perf_counter()
+        with profiling.trace(os.path.join(root, f"gnetvlad_{binary}_trace"),
+                             device=device) as t:
+            if binary == "eval":
+                epoch = eval_cli.main(argv + ["--eval_data_pattern", pattern])
+            elif binary == "validate":
+                epoch = validate_cli.main(argv + ["--eval_data_pattern", pattern])
+            else:
+                out = os.path.join(root, "gnetvlad_model.csv")
+                infer_cli.main(argv + ["--input_data_pattern", pattern, "--output_file", out])
+                with open(out) as f:
+                    rows = sum(1 for _ in f) - 1
+                if rows != B * GNETVLAD_BATCHES:
+                    raise AssertionError(f"19 cli.infer wrote {rows} rows")
+                epoch = None
+        seconds = time.perf_counter() - t0
+        spans = t.totals["spans"]
+        counts = {n: spans.get(n, {}).get("count", 0) for n in GNETVLAD_SPANS}
+        steps = [r for r in profiling.records() if r[0] == "step.eval"]
+        outside = [r for r in profiling.records() if r[0] in GNETVLAD_SPANS and not any(
+            s[1] == r[1] and s[2] <= r[2] and r[3] <= s[3] for s in steps)]
+        log(f"[19] cli.{binary} --model GatedNetVLADModel: spans {counts} over "
+            f"{GNETVLAD_BATCHES} batches of {B}, {len(steps)} step.eval, {seconds:.1f} s"
+            + ("" if epoch is None else f", avg_loss {epoch['avg_loss']:.6f}, "
+               f"gap {epoch['gap']:.6f}"))
+        if len(steps) != GNETVLAD_BATCHES:
+            raise AssertionError(f"19 cli.{binary}: {len(steps)} step.eval spans")
+        if any(c != forwards * GNETVLAD_BATCHES for c in counts.values()) or outside:
+            raise AssertionError(f"19 cli.{binary}: spans {counts}, {len(outside)} outside "
+                                 f"step.eval")
+        if epoch is not None and not math.isfinite(epoch["avg_loss"]):
+            raise AssertionError(f"19 cli.{binary}: avg_loss {epoch['avg_loss']}")
+    log(f"[19] GatedNetVLADModel at its published widths, 333,244,440 parameters: its "
+        f"four spans inside step.eval in the three binaries ({smi})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -3595,6 +3670,7 @@ def main() -> None:
         log(f"[16] phase 16 wall {time.perf_counter() - t0:.1f} s")
         driver_launches = phase_drivers(root, smi)
         lstm_model_launches = phase_lstm_model(root, smi)
+        phase_gnetvlad_model(root, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(TRACE_DIR, ignore_errors=True)
@@ -3604,8 +3680,8 @@ def main() -> None:
         raise AssertionError(f"the port imported {loaded}")
     if jax_package_files() != jax_files:
         raise AssertionError("the run wrote into the JAX package's directory")
-    log("[18] no module of jax, flax, msgpack or the JAX package loaded; nothing "
-        "written into the JAX package's directory (phases 1-18)")
+    log("[19] no module of jax, flax, msgpack or the JAX package loaded; nothing "
+        "written into the JAX package's directory (phases 1-19)")
     # The line's times are at student_L1 (T=6, B=1280, H=1024), the
     # student's first layer at batch 256. "ms" and "plain_ms" are eager
     # calls, "graph_ms" the kernel's graph replay. library_ms is cuDNN's

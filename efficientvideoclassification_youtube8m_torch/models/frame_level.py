@@ -1,9 +1,10 @@
 """Frame-level models (port of the JAX package's models/frame_level.py):
 the flagship `HierarchicalLstmModel`, `FrameLevelLogisticModel`,
 `DbofModel` (with batch norm), `NetVLADModel` and `NeXtVLADModel`, and
-the frame samplers and pooling they use; and two the port has and the
+the frame samplers and pooling they use; and three the port has and the
 JAX package does not: `LstmModel`, the YouTube-8M starter's flat LSTM
-baseline, and `NeXtVLADGatedModel`, the published NeXtVLAD.
+baseline, `NeXtVLADGatedModel`, the published NeXtVLAD, and
+`GatedNetVLADModel`, the 2017 challenge winner's Gated NetVLAD.
 Each takes [B, T, D] frames and `num_frames` [B], and swallows the
 keywords it does not read (the LSTM kernel switches among them).
 
@@ -669,3 +670,152 @@ class NeXtVLADGatedModel(nn.Module):
         """SE context gating: act sigmoid(relu(BN(act W_g1)) W_g2)."""
         gates = torch.relu(norm("gate_bn", _matmul(act, self.gate1.w, compute_dtype)))
         return act * torch.sigmoid(_matmul(gates, self.gate2.w, compute_dtype))
+
+
+class _NetVLADBranch(nn.Module):
+    """One feature's NetVLAD block (Willow's `NetVLAD.forward`,
+    github.com/antoine77340/Youtube-8M-WILLOW `frame_level_models.py`):
+    batch-normed cluster logits x W [T, K] (no bias) softmaxed over K and
+    masked to the true frames, the assignment-weighted sum of the frames
+    less the cluster centers [D, K] times the summed weights, l2 over D
+    for each cluster, flattened as [D, K] and l2-normalised whole. The
+    weights are drawn as Willow draws them: normal, stddev 1/sqrt(D)."""
+
+    def __init__(self, feature_size: int, clusters: int, key: prng.Key, device=None):
+        super().__init__()
+        k1, k2 = prng.split(key)
+        std = 1.0 / math.sqrt(feature_size)
+        self.cluster = Params(w=std * prng.normal(k1, (feature_size, clusters), device))
+        self.cluster_bn = _bn_init(clusters, device)
+        self.centers = nn.Parameter(std * prng.normal(k2, (feature_size, clusters), device))
+        self.code_size = feature_size * clusters
+
+    def forward(self, x, mask, norm: Callable, name: str,
+                compute_dtype: torch.dtype) -> torch.Tensor:
+        """x [B, T, D] (after the input batch norm), mask [B, T, 1] -> the
+        code [B, D*K]; `norm(path, value)` applies the batch norm at
+        `path`."""
+        B, T, _ = x.shape
+        K = self.centers.shape[1]
+        x = x.to(compute_dtype)  # one cast for both products
+        logits = norm(f"{name}.cluster_bn",
+                      _matmul(x, self.cluster.w, compute_dtype).reshape(B * T, K))
+        assign = torch.softmax(logits, dim=-1).reshape(B, T, K) * mask
+        # v[d, k] = sum_t a[t, k] x[t, d] - c[d, k] sum_t a[t, k]
+        vlad = _matmul(assign.transpose(1, 2), x, compute_dtype).transpose(1, 2)
+        vlad = vlad - torch.sum(assign, dim=1)[:, None, :] * self.centers
+        return _l2_rows(_l2_rows(vlad, 1).reshape(B, -1), 1)
+
+
+@register_model("GatedNetVLADModel", frame_level=True)
+class GatedNetVLADModel(nn.Module):
+    """Gated NetVLAD (Miech, Laptev & Sivic, Learnable pooling with Context
+    Gating for video classification, arXiv:1706.06905; Willow's
+    `NetVLADModelLF` with `willow_MoeModel`, the 2017 YouTube-8M
+    challenge's winning single model): an input batch norm over every
+    frame's features, one `_NetVLADBranch` for each of the two features
+    (the first with `vlad_clusters` clusters, the second with half),
+    their codes concatenated, a hidden FC with a bias (Willow's
+    `netvlad_relu` False: no batch norm, no relu6), context gating
+    (Willow's `gating`: act sigmoid(BN(act W_g))), the video-level
+    classifier, and probability gating of its predictions
+    (`moe_prob_gating`: p sigmoid(BN(p W_p))); both gates are always on.
+    The classifier's input is the distillation "state" (`cli.validate`'s
+    L_REP). The defaults are the published widths (the README's Gated
+    NetVLAD command; `add_batch_norm` at Willow's default, True). The
+    trunk adds no regularization loss.
+
+    One departure: Willow draws `iterations` frames uniformly with
+    replacement at eval too; here eval sums over every true frame, masked.
+    The sum over the true frames is the expectation of the sum over the
+    draws, up to a factor a video that the intra-normalisation removes,
+    and it is deterministic. In training (`is_training` with `rng`) the
+    forward draws `iterations` frames as Willow does
+    (`sample_random_frames`; the step passes `--iterations`, which the
+    README's command sets to 300), and the batch norms use the batch's
+    moments over those rows (over every frame row, padding included,
+    without `rng`) and return the new moving statistics under
+    "updated_stats".
+
+    Every product, the aggregation included, multiplies its operands in
+    `compute_dtype`; softmaxes, sigmoids, batch norms and l2 norms run in
+    float32."""
+
+    def __init__(self, input_size: int, vocab_size: int,
+                 feature_sizes: Optional[Sequence[int]] = None,
+                 vlad_clusters: int = 256, hidden_size: int = 1024,
+                 classifier: str = "MoeModel", classifier_kwargs: Optional[dict] = None,
+                 key: Optional[prng.Key] = None, device=None, **_):
+        super().__init__()
+        sizes = list(feature_sizes or ())
+        if len(sizes) != 2 or sum(sizes) != input_size:
+            raise ValueError(f"GatedNetVLADModel needs two features (video, audio) "
+                             f"summing to {input_size}, got {feature_sizes}")
+        kv, ka, kh, kb, kg, kp, kc = prng.split(key or prng.prng_key(0), 7)
+        self.feature_sizes = tuple(sizes)
+        self.input_bn = _bn_init(input_size, device)
+        self.video = _NetVLADBranch(sizes[0], vlad_clusters, kv, device)
+        self.audio = _NetVLADBranch(sizes[1], vlad_clusters // 2, ka, device)
+        codes = self.video.code_size + self.audio.code_size
+        # Willow's initialisers: normal, these stddevs
+        self.hidden = Params(
+            w=(1.0 / math.sqrt(vlad_clusters)) * prng.normal(kh, (codes, hidden_size), device),
+            b=0.01 * prng.normal(kb, (hidden_size,), device))
+        self.gate = Params(w=(1.0 / math.sqrt(hidden_size)) * prng.normal(
+            kg, (hidden_size, hidden_size), device))
+        self.gate_bn = _bn_init(hidden_size, device)
+        self.classifier = get_model(classifier)(
+            hidden_size, vocab_size, key=kc, device=device, **(classifier_kwargs or {}))
+        self.prob_gate = Params(w=(1.0 / math.sqrt(vocab_size)) * prng.normal(
+            kp, (vocab_size, vocab_size), device))
+        self.prob_gate_bn = _bn_init(vocab_size, device)
+
+    def forward(self, model_input, num_frames, classifier: Optional[str] = None,
+                compute_dtype: torch.dtype = torch.float32, is_training: bool = True,
+                rng: Optional[prng.Key] = None, iterations: int = 300,
+                **classifier_kwargs) -> Dict[str, Any]:
+        """`rng` (training) draws `iterations` frames; the head gets a key
+        of its own."""
+        _check_classifier(self, classifier)
+        cls_rng = None
+        if rng is not None:
+            sample_rng, cls_rng = prng.split(rng)
+            if is_training:
+                model_input = sample_random_frames(model_input, num_frames,
+                                                   iterations, sample_rng)
+                num_frames = torch.full_like(num_frames, iterations)
+        B, T, D = model_input.shape
+        mask = _frame_mask(num_frames, T, model_input.device)
+        updated: Dict[str, torch.Tensor] = {}
+
+        def norm(path, value):
+            value, new = _bn_apply(self.get_submodule(path), value, is_training)
+            updated.update({f"{path}.{k}": v for k, v in new.items()})
+            return value
+
+        split = self.feature_sizes[0]
+        with profiling.annotate("gnetvlad.video"):
+            x = norm("input_bn", model_input.reshape(B * T, D)).reshape(B, T, D)
+            video = self.video(x[:, :, :split], mask, norm, "video", compute_dtype)
+        with profiling.annotate("gnetvlad.audio"):
+            audio = self.audio(x[:, :, split:], mask, norm, "audio", compute_dtype)
+        with profiling.annotate("gnetvlad.hidden"):
+            act = _matmul(torch.cat([video, audio], dim=1), self.hidden.w,
+                          compute_dtype) + self.hidden.b
+            act = act * self._gate("gate", act, norm, compute_dtype)
+        with profiling.annotate("gnetvlad.head"):
+            result = self.classifier(act, rng=cls_rng, compute_dtype=compute_dtype,
+                                     is_training=is_training, **classifier_kwargs)
+            p = result["predictions"]
+            result["predictions"] = p * self._gate("prob_gate", p, norm, compute_dtype)
+        result["state"] = act
+        if updated:
+            result["updated_stats"] = updated
+        return result
+
+    def _gate(self, name: str, act, norm: Callable, compute_dtype: torch.dtype
+              ) -> torch.Tensor:
+        """Willow's gates: sigmoid(BN(act W)), W and BN at `name`,
+        `name`_bn."""
+        w = getattr(self, name).w
+        return torch.sigmoid(norm(f"{name}_bn", _matmul(act, w, compute_dtype)))

@@ -108,7 +108,8 @@ def _model_apply_kwargs(cfg: TrainConfig, device: torch.device,
     "on" forces the train kernels (their plain versions on CPU tensors),
     "off" the plain scan. Models without recurrences swallow these. Then
     DBoF's flag block (with `bn_group`, the process group of synced
-    batch norm) and the head's size, as in the JAX package."""
+    batch norm), Gated NetVLAD's training draw and the head's size, as in
+    the JAX package."""
     is_cuda = torch.device(device).type == "cuda"
     bf16 = cfg.compute_dtype == "bfloat16"
     kw: Dict[str, Any] = {
@@ -133,6 +134,8 @@ def _model_apply_kwargs(cfg: TrainConfig, device: torch.device,
                   pooling_method=cfg.dbof_pooling_method,
                   add_batch_norm=cfg.dbof_add_batch_norm,
                   bn_group=bn_group)
+    if cfg.model == "GatedNetVLADModel":
+        kw["iterations"] = cfg.iterations  # the training draw's frames
     if cfg.video_level_classifier_model == "MoeModel":
         kw["num_mixtures"] = cfg.moe_num_mixtures
     else:

@@ -61,7 +61,7 @@ class TrainConfig:
     video_level_classifier_model: str = "MoeModel"
     moe_num_mixtures: int = 2
     num_hidden_units: int = 1024
-    iterations: int = 30  # DBoF frames per sample
+    iterations: int = 30  # frames a training sample draws (DBoF, Gated NetVLAD)
     dbof_cluster_size: int = 8192
     dbof_hidden_size: int = 1024
     dbof_pooling_method: str = "max"

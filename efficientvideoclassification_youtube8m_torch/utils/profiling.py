@@ -66,6 +66,11 @@ prefetch and the fetch):
   lstm.head           `LstmModel`'s classifier, inside its step
   lstm.step_launches  (counter) step kernels `lstm_chunk_scan` launched,
                       T a call
+  gnetvlad.video      `GatedNetVLADModel`'s input batch norm and video
+                      branch, inside its step
+  gnetvlad.audio      its audio branch
+  gnetvlad.hidden     its hidden FC and context gating
+  gnetvlad.head       its classifier and probability gating
   fetch.enqueue       `HostFetch` queueing a step's device->host copy
   fetch.wait          `HostFetch.get()` waiting for that copy
   eval.accumulate     a fetch's rows unpacked (`eval.unpack`), scored

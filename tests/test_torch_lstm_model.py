@@ -201,7 +201,8 @@ def test_the_frame_level_kind_is_the_registrys():
 
     frames = {n for n, cls in MODEL_REGISTRY.items() if cls.frame_level}
     assert frames == {"HierarchicalLstmModel", "LstmModel", "FrameLevelLogisticModel",
-                      "DbofModel", "NetVLADModel", "NeXtVLADModel", "NeXtVLADGatedModel"}
+                      "DbofModel", "NetVLADModel", "NeXtVLADModel", "NeXtVLADGatedModel",
+                      "GatedNetVLADModel"}
     with pytest.raises(ValueError, match="frame-level model"):
         tstep.forward_video_level(_cfg(), None, torch.zeros(2, D))
 
